@@ -1,0 +1,55 @@
+"""The subset of mec_tpu.config.Config that the speech serving slice reads.
+
+Same attribute names, same defaults, same MEC_* environment variables as
+mec_tpu/config.py (which cannot be imported here: importing any mec_tpu
+module imports jax). tests/test_torch_engine.py pins every value below
+against the original.
+"""
+
+import os
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+class Config:
+    # Labels (reference config.py:53-54)
+    EMOTIONS = ['happy', 'sad', 'angry', 'fear', 'disgust', 'surprise', 'neutral']
+    NUM_EMOTIONS = 7
+
+    # Audio settings (reference config.py:57-59)
+    SAMPLE_RATE = 22050
+    AUDIO_DURATION = 3
+    N_MFCC = 40
+
+    # Number of audio samples per clip after pad/trim
+    AUDIO_SAMPLES = SAMPLE_RATE * AUDIO_DURATION  # 66150
+
+    # STFT parameters matching librosa 0.10 defaults
+    N_FFT = 2048
+    HOP_LENGTH = 512
+    N_MELS = 128
+
+    # Serving: micro-batch bucket sizes. Requests are padded up to the
+    # smallest bucket >= pending count.
+    BATCH_BUCKETS = tuple(
+        int(x) for x in os.environ.get('MEC_BATCH_BUCKETS', '1,8,32').split(',')
+    )
+    # Max time the batcher waits to fill a bucket before flushing (seconds).
+    BATCH_TIMEOUT_S = float(os.environ.get('MEC_BATCH_TIMEOUT_S', '0.003'))
+    # Adaptive linger cap while new requests keep arriving (seconds).
+    BATCH_MAX_LINGER_S = float(
+        os.environ.get('MEC_BATCH_MAX_LINGER_S', '0.02'))
+    # Load shedding: max requests queued per batch queue; 0 disables.
+    BATCH_MAX_PENDING = int(os.environ.get('MEC_BATCH_MAX_PENDING', '256'))
+    # Batches in flight per queue (1 = serial).
+    BATCH_PIPELINE_DEPTH = int(os.environ.get('MEC_BATCH_PIPELINE', '2'))
+
+    # Compressed host->device wire: packed 12-bit PCM audio with a
+    # per-clip scale (serving/wire.py); off ships PCM16, as the JAX
+    # engine's serving mode does.
+    WIRE_COMPRESS = _env_flag('MEC_WIRE_COMPRESS', True)

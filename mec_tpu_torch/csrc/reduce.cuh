@@ -1,0 +1,59 @@
+// Warp and block reductions shared by the kernels.
+//
+// block_* reduce across the whole block and return the result to EVERY
+// thread. They begin with a barrier, so one scratch array can serve
+// back-to-back calls, and the caller must reach them with all threads.
+// Integer sums are exact, so their order does not matter; float min/max
+// are exact too.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace mec {
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// scratch: at least blockDim.x / 32 entries of shared memory
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+  v = warp_sum(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
+  return s;
+}
+
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  v = warp_max(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = scratch[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, scratch[w]);
+  return m;
+}
+
+__device__ __forceinline__ float block_min(float v, float* scratch) {
+  v = warp_min(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = scratch[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fminf(m, scratch[w]);
+  return m;
+}
+
+}  // namespace mec
