@@ -1,24 +1,40 @@
 #!/usr/bin/env python3
-"""Smoke test of mec_tpu_torch's speech serving path on one NVIDIA GPU.
+"""Smoke test of mec_tpu_torch's serving paths on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
+
+Two paths are driven: speech (waveform -> pcm12 wire -> 56-dim frontend
+-> SpeechDNN; kernels K1-K4) and image (uint8 RGB -> YUV 4:2:0 wire ->
+full-width 224 px ResNet50 in bf16 with BN folded and int8 static
+convs; kernels K6 stem pool, K7 layer1).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
   2. build    build the CUDA kernels from mec_tpu_torch/csrc (nvcc, sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card,
-              at the serving path's shapes for B=32 and B=1, on seeded
-              tones, chirps, noise and one silent clip
-  4. engine   full-width speech DNN from a numpy seed (Flax layout,
-              serving/synthetic_artifacts.py; the plain model's copy
-              converted with speech_state_from_jax); the engine warms up
-              buckets (1, 8, 32), predicts B=1, 5, 32 and serves 4 WAV
+              at the serving path's shapes for B=32 and B=1: K1-K4 on
+              seeded tones, chirps, noise and one silent clip; K6 and K7
+              on the stem output of seeded images through the image
+              engine's own model
+  4. engine   speech: full-width speech DNN from a numpy seed (Flax
+              layout, serving/synthetic_artifacts.py; the plain model's
+              copy converted with speech_state_from_jax); the engine warms
+              up buckets (1, 8, 32), predicts B=1, 5, 32 and serves 4 WAV
               files through the micro-batcher; checks results, the launch
-              counters (each kernel once per dispatch) and agreement with
-              the same engine on device='cpu'
-  5. times    CUDA-event medians of each kernel and its plain version at
-              B=32, and of the engine's device step at B=1, 8, 32
-  6. report   a JSON line of the kernels, then the contract line last:
+              counters (each speech kernel once per dispatch, the image
+              kernels never) and agreement with the same engine on
+              device='cpu'
+  5. image    full-width ResNet50 (224 px) from a numpy seed; a bf16
+              int8-static engine calibrates on the card, warms up buckets
+              (1, 8, 32), predicts B=1, 5, 32 and, if PIL is present,
+              serves 4 PNGs through the micro-batcher; checks results,
+              the launch counters (K6 and K7 once per dispatch, the
+              speech kernels never), agreement with the same engine on
+              device='cpu' (given the card's scales) and an fp32 parity
+              engine on the card against device='cpu' within 1e-4
+  6. times    CUDA-event medians of each kernel and its plain version at
+              B=32, and of each engine's device step at B=1, 8, 32
+  7. report   a JSON line of the kernels, then the contract line last:
               {"ok": true, "device": {"platform": "gpu", ...}}
 """
 
@@ -36,6 +52,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 66150
 REPS = 30
+IMAGE_SEED = 6        # a random ResNet50 whose decisions differ on images()
+# bf16 int8 card engine against the same engine on the CPU (given the
+# card's static scales): cuDNN and oneDNN accumulate the bf16 stem conv
+# and head GEMMs in other orders, so a few activations round one bf16
+# step apart and may move an int8 code downstream
+IMAGE_BAND = 2e-2
 
 
 def fail(msg):
@@ -64,6 +86,74 @@ def waves(B, seed):
             y = 0.02 * i * rng.randn(N)
         rows.append(y + 0.01 * rng.randn(N))
     return np.stack(rows).astype(np.float32)
+
+
+def images(B, seed, size=224):
+    """Seeded test images: noise, gradients, flat fields, and some with
+    structure (checkerboard, stripes, a disc, a colour ramp)."""
+    rng = np.random.RandomState(seed)
+    h = w = size
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(B):
+        kind = i % 8
+        if kind == 0:
+            img = rng.randint(0, 256, (h, w, 3))
+        elif kind == 1:
+            img = np.stack([yy / (h - 1) * 255] * 3, -1)
+        elif kind == 2:
+            img = np.broadcast_to(rng.randint(0, 256, 3), (h, w, 3))
+        elif kind == 3:
+            img = ((yy // 16 + xx // 16) % 2 * 255)[:, :, None] * np.ones(3)
+        elif kind == 4:
+            img = np.stack([(np.sin(xx / (3 + i)) + 1) * 127.5] * 3, -1)
+        elif kind == 5:
+            d = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 < (h / (3 + i % 3)) ** 2
+            img = d[:, :, None] * rng.randint(0, 256, 3)
+        elif kind == 6:
+            img = np.stack([xx / (w - 1) * 255, yy / (h - 1) * 255,
+                            np.full((h, w), 128.0)], -1)
+        else:
+            img = rng.randint(64 + 8 * (i % 4), 192, (h, w, 3))
+        out.append(np.clip(img, 0, 255))
+    return np.stack(out).astype(np.uint8)
+
+
+def check_results(got, ref, band, what):
+    """Finite, normalised, no fallback; probabilities within band of ref
+    and decisions equal wherever ref's top-2 margin exceeds band.
+    Returns the largest probability difference."""
+    check(len(got) == len(ref), f'{what}: result count mismatch')
+    worst = 0.0
+    for g, r in zip(got, ref):
+        check(g is not None and '_fallback' not in g, f'{what}: fallback {g}')
+        pg = np.asarray(g['all_probabilities'])
+        check(bool(np.isfinite(pg).all())
+              and abs(pg.sum() - 1.0) <= 1e-5,
+              f'{what}: probabilities {pg.tolist()}')
+        e = float(np.max(np.abs(pg - np.asarray(r['all_probabilities']))))
+        worst = max(worst, e)
+        check(e <= band, f'{what}: probs differ from cpu by {e} > {band}')
+        top2 = np.sort(r['all_probabilities'])[-2:]
+        if top2[1] - top2[0] > band:
+            check(g['emotion'] == r['emotion'],
+                  f'{what}: decision {g["emotion"]} vs cpu {r["emotion"]}')
+    return worst
+
+
+def serve_through(queue, paths):
+    """Submit each path from its own thread; returns the results."""
+    served = [None] * len(paths)
+    threads = [threading.Thread(
+        target=lambda i=i: served.__setitem__(i, queue.submit(paths[i])))
+        for i in range(len(paths))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in threads),
+          'batcher requests did not finish')
+    return served
 
 
 def cuda_ms(fn, reps=REPS):
@@ -114,13 +204,23 @@ def main():
         if 'registers' in line or 'Compiling entry' in line:
             print('  ptxas:', line.strip().split('ptxas info    : ')[-1])
 
+    import torch.nn.functional as F
     from mec_tpu_torch.ops import audio_features as af
-    from mec_tpu_torch.ops import rolloff_kernel, speech_kernels, tuning_kernel
-    from mec_tpu_torch.serving.synthetic_artifacts import speech_variables
+    from mec_tpu_torch.ops import (pool_kernel, resnet_kernel, rolloff_kernel,
+                                   speech_kernels, tuning_kernel)
+    from mec_tpu_torch.ops.quant import extract_static_scales
+    from mec_tpu_torch.serving.engine import EmotionEngine
+    from mec_tpu_torch.serving.synthetic_artifacts import (image_variables,
+                                                           speech_variables)
+    speech_names = ('mfcc_mean', 'tuning_select', 'rolloff_bins',
+                    'speech_dnn')
+    image_names = ('max_pool_3x3s2', 'layer1')
     wrappers = {'mfcc_mean': speech_kernels.mfcc_mean,
                 'tuning_select': tuning_kernel.tuning_select,
                 'rolloff_bins': rolloff_kernel.rolloff_bins,
-                'speech_dnn': speech_kernels.speech_dnn}
+                'speech_dnn': speech_kernels.speech_dnn,
+                'max_pool_3x3s2': pool_kernel.max_pool_3x3s2,
+                'layer1': resnet_kernel.layer1}
 
     # --------------------------------------------------------- 3 kernels
     tree = speech_variables(seed=2)
@@ -202,13 +302,54 @@ def main():
         print(f'kernel speech_dnn    B={B:2d}: probs max|err| {e_prob:.3e} '
               f'(<= 2e-6), penult {e_pen:.3e} (<= 2e-5)')
 
+    # K6, K7 on the image path's own tensors: the bf16 int8-static
+    # engine's model (calibrated on the card) turns seeded 224 px images
+    # into the post-ReLU stem map (K6's input) and the pooled map (K7's)
+    t0 = time.perf_counter()
+    img_tree, img_meta = image_variables(seed=IMAGE_SEED)
+    img_engine = EmotionEngine(image_variables=img_tree, image_meta=img_meta,
+                               compute_dtype='bfloat16', device='cuda')
+    check(img_engine._image_quant_mode == 'static',
+          f'image engine serves {img_engine._image_quant_mode} int8')
+    print(f'image engine: bf16, BN folded, int8 static, calibrated on the '
+          f'card in {time.perf_counter() - t0:.2f} s')
+    model = img_engine.image['model']
+    blocks = [getattr(model, n) for n in model.stages[0]]
+    img_mean, img_std = img_engine.image['mean'], img_engine.image['std']
+    image_inputs32 = None
+    with torch.inference_mode():
+        for B in (32, 1):
+            u8 = torch.from_numpy(images(32, seed=3)[-B:]).to(dev)
+            xn = (u8.float() / 255.0 - img_mean) / img_std
+            stem = F.relu(model.conv1(xn.to(torch.bfloat16))).contiguous()
+            pooled = pool_kernel.max_pool_3x3s2_plain(stem)
+            if B == 32:
+                image_inputs32 = (stem, pooled)
+            # K6: a max moves values -> bit-exact
+            k = pool_kernel.max_pool_3x3s2(stem)
+            torch.cuda.synchronize()
+            check(torch.equal(k, pooled),
+                  f'max_pool_3x3s2 B={B}: not bit-exact')
+            errs['max_pool_3x3s2'] = 0.0
+            print(f'kernel max_pool_3x3s2 B={B:2d}: {tuple(stem.shape)} -> '
+                  f'{tuple(k.shape)} bit-exact')
+            # K7: exact integer sums, same rounding points -> bit-exact
+            k = resnet_kernel.layer1(pooled, blocks)
+            p = resnet_kernel.layer1_plain(pooled, blocks)
+            torch.cuda.synchronize()
+            err = (k.float() - p.float()).abs().max().item()
+            check(torch.equal(k, p), f'layer1 B={B}: not bit-exact '
+                  f'(max |err| {err})')
+            errs['layer1'] = max(errs.get('layer1', 0.0), err)
+            print(f'kernel layer1        B={B:2d}: {tuple(pooled.shape)} -> '
+                  f'{tuple(k.shape)} bit-exact')
+
     # ---------------------------------------------------------- 4 engine
     from mec_tpu_torch.convert.from_jax import speech_state_from_jax
     from mec_tpu_torch.models.speech_dnn import SpeechDNN
     from mec_tpu_torch.ops import wav
     from mec_tpu_torch.serving import wire
     from mec_tpu_torch.serving.batcher import EngineBatcher
-    from mec_tpu_torch.serving.engine import EmotionEngine
 
     scaler = (mean.cpu().numpy(), scale.cpu().numpy())
     engine = EmotionEngine(tree, scaler, device='cuda')
@@ -228,27 +369,19 @@ def main():
     results = {B: engine.predict_speech_waves(clips[:B], want_features=True)
                for B in (1, 5, 32)}
     batcher = EngineBatcher(engine)
-    served = [None] * len(paths)
     try:
-        threads = [threading.Thread(
-            target=lambda i=i: served.__setitem__(
-                i, batcher.speech.submit(paths[i])))
-            for i in range(len(paths))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        check(not any(th.is_alive() for th in threads),
-              'batcher requests did not finish')
+        served = serve_through(batcher.speech, paths)
     finally:
         batcher.stop()
-    launches = {name: w.launches for name, w in wrappers.items()}
+    counts = {name: w.launches for name, w in wrappers.items()}
     dispatches = 3 + 3 + batcher.stats()['speech']['batches']
     print(f'engine: {dispatches} speech dispatches (3 warmup, 3 direct, '
-          f'{dispatches - 6} batcher); launches {launches}')
-    for name, n in launches.items():
-        check(n == dispatches, f'{name} launched {n} times in '
-              f'{dispatches} dispatches (want exactly one per dispatch)')
+          f'{dispatches - 6} batcher); launches {counts}')
+    for name, n in counts.items():
+        want = dispatches if name in speech_names else 0
+        check(n == want, f'{name} launched {n} times in {dispatches} '
+              f'speech dispatches (want {want})')
+    launches = {name: counts[name] for name in speech_names}
 
     served_ref = cpu_engine.predict_speech_paths(paths)
     checks = [(results[B], cpu_engine.predict_speech_waves(
@@ -286,8 +419,93 @@ def main():
           f'no fallbacks; decisions at B=32: {labels}')
     tmp.cleanup()
 
-    # ----------------------------------------------------------- 5 times
+    # ----------------------------------------------------------- 5 image
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    print('PIL: present' if have_pil else
+          'PIL: absent; the 4 PNG requests are skipped (their decode runs '
+          'on the host and touches no kernel)')
+    cpu_meta = dict(img_meta, int8_scales={
+        img_engine._image_scales_key():
+            extract_static_scales(img_engine.image['variables'])})
+    img_cpu = EmotionEngine(image_variables=img_tree, image_meta=cpu_meta,
+                            compute_dtype='bfloat16', device='cpu')
+    check(img_cpu._image_scales_cached, 'cpu engine did not take the '
+          'card engine\'s scales')
+    pics = images(32, seed=5)
+    tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_')
+    png_paths = []
+    if have_pil:
+        from PIL import Image
+        for i in range(4):
+            png_paths.append(os.path.join(tmp.name, f'img{i}.png'))
+            Image.fromarray(pics[i + 3]).save(png_paths[-1])
+
+    for w in wrappers.values():
+        w.launches = 0
+    img_engine.warmup((1, 8, 32))
+    img_results = {B: img_engine.predict_images(pics[:B], want_features=True)
+                   for B in (1, 5, 32)}
+    img_served = []
+    img_batches = 0
+    if have_pil:
+        batcher = EngineBatcher(img_engine)
+        try:
+            img_served = serve_through(batcher.image, png_paths)
+        finally:
+            batcher.stop()
+        img_batches = batcher.stats()['image']['batches']
+    counts = {name: w.launches for name, w in wrappers.items()}
+    img_dispatches = 3 + 3 + img_batches
+    print(f'image engine: {img_dispatches} image dispatches (3 warmup, 3 '
+          f'direct, {img_batches} batcher); launches {counts}')
+    for name, n in counts.items():
+        want = img_dispatches if name in image_names else 0
+        check(n == want, f'{name} launched {n} times in {img_dispatches} '
+              f'image dispatches (want {want})')
+    launches.update({name: counts[name] for name in image_names})
+
+    for B in (1, 5, 32):
+        for r in img_results[B]:
+            check(r['_features'].shape == (512,)
+                  and bool(np.isfinite(r['_features']).all()),
+                  'image features not finite (512,)')
+    worst = max(check_results(img_results[B], img_cpu.predict_images(
+        pics[:B]), IMAGE_BAND, f'image bf16 B={B}') for B in (1, 5))
+    if have_pil:
+        worst = max(worst, check_results(
+            img_served, img_cpu.predict_image_paths(png_paths), IMAGE_BAND,
+            'image PNGs via batcher'))
+    labels = sorted({r['emotion'] for r in img_results[32]})
+    check(len(labels) > 1, f'image decisions at B=32 all {labels}')
+    print(f'image engine: bf16 int8-static results agree with device=cpu '
+          f'(max probs err {worst:.3e} <= {IMAGE_BAND}); no fallbacks; '
+          f'decisions at B=32: {labels}')
+
+    # fp32 parity mode (live BN, fp32 convs with TF32 off, plain pool)
+    img32 = EmotionEngine(image_variables=img_tree, image_meta=img_meta,
+                          compute_dtype='float32', device='cuda')
+    img32_cpu = EmotionEngine(image_variables=img_tree, image_meta=img_meta,
+                              compute_dtype='float32', device='cpu')
+    before = {n: wrappers[n].launches for n in image_names}
+    got32 = img32.predict_images(pics[:5], want_features=True)
+    check({n: wrappers[n].launches for n in image_names} == before,
+          'fp32 parity mode launched an image kernel')
+    ref32 = img32_cpu.predict_images(pics[:5], want_features=True)
+    worst32 = check_results(got32, ref32, 1e-4, 'image fp32 B=5')
+    e_feat = max(float(np.abs(g['_features'] - r['_features']).max())
+                 for g, r in zip(got32, ref32))
+    check(e_feat <= 1e-4, f'image fp32 features differ by {e_feat}')
+    print(f'image engine: fp32 parity on the card agrees with device=cpu '
+          f'(probs {worst32:.3e}, feat {e_feat:.3e} <= 1e-4)')
+    tmp.cleanup()
+
+    # ----------------------------------------------------------- 6 times
     P, mags, residual, pitches, rows, x = inputs32
+    stem32, pooled32 = image_inputs32
     timed = {
         'mfcc_mean': (lambda: speech_kernels.mfcc_mean(P),
                       lambda: speech_kernels.mfcc_mean_plain(P)),
@@ -300,11 +518,17 @@ def main():
         'speech_dnn': (lambda: fwd(x),
                        lambda: speech_kernels.speech_dnn_plain(
                            x, fwd.params, fwd.dims)),
+        'max_pool_3x3s2': (
+            lambda: pool_kernel.max_pool_3x3s2(stem32),
+            lambda: pool_kernel.max_pool_3x3s2_plain(stem32)),
+        'layer1': (lambda: resnet_kernel.layer1(pooled32, blocks),
+                   lambda: resnet_kernel.layer1_plain(pooled32, blocks)),
     }
     times = {}
     for name, (kern, plain) in timed.items():
         # alternate plain, kernel, kernel, plain so drift hits both
-        p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
+        with torch.inference_mode():
+            p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
         times[name] = (statistics.median([k1, k2]),
                        statistics.median([p1, p2]))
         print(f'time {name:13s} B=32: kernel {times[name][0]:.4f} ms, plain '
@@ -322,8 +546,21 @@ def main():
               f'events, wire already on the card); _run_speech host wall '
               f'{statistics.median(host):.2f} ms (median of 10, incl. pcm12 '
               f'encode + copies); {card}')
+    for mode, eng in (('bf16-int8', img_engine), ('fp32', img32)):
+        for B in (1, 8, 32):
+            wire_dev = eng._to_device(eng._wire_image(pics[:B], B))
+            step = cuda_ms(lambda: eng._image_forward(wire_dev), reps=20)
+            host = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                eng.predict_images(pics[:B])
+                host.append((time.perf_counter() - t0) * 1e3)
+            print(f'time image device step {mode:9s} B={B:2d}: {step:.4f} ms '
+                  f'(CUDA events, wire already on the card); predict_images '
+                  f'host wall {statistics.median(host):.2f} ms (median of 10,'
+                  f' incl. wire encode + copies); {card}')
 
-    # ---------------------------------------------------------- 6 report
+    # ---------------------------------------------------------- 7 report
     sources = {'mfcc_mean': ('mec_tpu_torch/csrc/mfcc_mean.cu',
                              'mec_tpu/ops/pallas_kernels.py:211'),
                'tuning_select': ('mec_tpu_torch/csrc/tuning_select.cu',
@@ -331,7 +568,11 @@ def main():
                'rolloff_bins': ('mec_tpu_torch/csrc/rolloff_bins.cu',
                                 'mec_tpu/ops/pallas_rolloff.py:71'),
                'speech_dnn': ('mec_tpu_torch/csrc/speech_dnn.cu',
-                              'mec_tpu/ops/pallas_kernels.py:286')}
+                              'mec_tpu/ops/pallas_kernels.py:286'),
+               'max_pool_3x3s2': ('mec_tpu_torch/csrc/max_pool_3x3s2.cu',
+                                  'mec_tpu/ops/pallas_pool.py:63'),
+               'layer1': ('mec_tpu_torch/csrc/layer1_int8.cu',
+                          'mec_tpu/ops/pallas_resnet.py:189')}
     print(card)
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda', 'source': sources[name][0],

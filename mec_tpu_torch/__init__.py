@@ -5,23 +5,34 @@ module here mirrors the path of its `mec_tpu` counterpart and is held
 against it by the tests in tests/test_torch_*.py. This package imports
 torch and never jax: the machine that runs it on the card has no jax,
 flax, msgpack or werkzeug, so the numpy-only host modules it needs
-(config, filters, wav, the batcher) are small copies pinned to their
-originals by tests.
+(config, filters, wav, the batcher, fold, the image half of quant,
+image preprocessing) are small copies pinned to their originals by
+tests.
 
-What is ported so far is the speech serving path: waveform -> 12-bit
-PCM wire -> on-device 56-dim frontend -> full-width speech DNN ->
-result dicts, with the four TPU Pallas kernels of that path rewritten
-as CUDA C++ kernels for sm_90a (csrc/, built at first use by
-ops/_build.py).
+What is ported so far:
+
+* the speech serving path: waveform -> 12-bit PCM wire -> on-device
+  56-dim frontend -> full-width speech DNN -> result dicts;
+* the image serving path: uint8 RGB -> YUV 4:2:0 wire -> on-device
+  decode and normalize -> ResNet50 -> result dicts, in bf16 serving mode
+  (BN folded, int8 bottleneck convs with static scales) and in fp32
+  parity mode (live BN).
+
+The six TPU Pallas kernels of these paths are rewritten as CUDA C++
+kernels for sm_90a (csrc/, built at first use by ops/_build.py): K1
+mfcc_mean, K2 tuning_select, K3 rolloff_bins, K4 speech_dnn, K6 the
+stem max-pool, K7 the int8 layer1.
 
 Package layout:
-  config.py   the subset of mec_tpu.config the slice reads
+  config.py   the subset of mec_tpu.config the slices read
   ops/        frontend (audio_features), kernel wrappers + plain twins,
-              numpy filter tables, WAV decode, the nvcc build
+              numpy filter tables, WAV decode, BN fold, int8 quantization,
+              the nvcc build
   csrc/       the hand-written CUDA kernels
-  models/     SpeechDNN (plain nn.Module)
+  models/     SpeechDNN, ResNet50 and QuantConv (plain nn.Modules)
+  image/      image decode and the ImageNet constants
   convert/    JAX (Flax numpy tree) -> port parameters
-  serving/    wire codec, engine, micro-batcher
+  serving/    wire codecs, engine, micro-batcher, synthetic parameters
   utils/      StageTimer
 """
 

@@ -1,4 +1,4 @@
-"""The subset of mec_tpu.config.Config that the speech serving slice reads.
+"""The subset of mec_tpu.config.Config that the ported serving slices read.
 
 Same attribute names, same defaults, same MEC_* environment variables as
 mec_tpu/config.py (which cannot be imported here: importing any mec_tpu
@@ -53,3 +53,24 @@ class Config:
     # per-clip scale (serving/wire.py); off ships PCM16, as the JAX
     # engine's serving mode does.
     WIRE_COMPRESS = _env_flag('MEC_WIRE_COMPRESS', True)
+
+    # Image settings (reference config.py:65)
+    IMAGE_SIZE = (224, 224)
+
+    # Compute dtype: 'bfloat16' is the serving mode (BN folded into the
+    # convs, int8 bottleneck convs, YUV wire); 'float32' is the parity
+    # mode (live BN, fp32 convs, logits within 1e-4 of the reference).
+    COMPUTE_DTYPE = os.environ.get('MEC_COMPUTE_DTYPE', 'float32')
+
+    # bf16 serving: fold image-model BatchNorm into the conv kernels and
+    # biases at load (ops/fold.py). fp32 parity mode ignores this.
+    FOLD_BN = _env_flag('MEC_FOLD_BN', True)
+
+    # bf16 serving: after the fold, quantize the 52 ResNet50 bottleneck
+    # convs to int8 (ops/quant.py, models/qconv.py). fp32 ignores this.
+    IMAGE_INT8 = _env_flag('MEC_IMAGE_INT8', True)
+
+    # Static int8 activation scales, calibrated once at engine load
+    # (ops/quant.calibrate_static_scales); off = per-example dynamic
+    # scales.
+    INT8_STATIC = _env_flag('MEC_INT8_STATIC', True)

@@ -4,12 +4,16 @@ The port reads the numpy trees the JAX package uses (a Flax
 {'params', 'batch_stats'} tree of arrays), not the .mecp files on disk:
 those are Flax msgpack, and the card's machine has no flax or msgpack.
 
-Two consumers take the same tree:
+Speech: two consumers take the same tree:
   * speech_state_from_jax -> the state dict of models.SpeechDNN (the
     plain model); Flax Dense kernels are (in, out), torch Linear.weight
     is (out, in).
   * ops.speech_kernels.make_speech_dnn -> the folded kernel weights
     (BatchNorm folded into each Dense by fold_batchnorm, flattened).
+
+Image: image_state_from_jax -> the state dict of models.resnet
+.ImageEmotionModel, for each of the three forms the engine serves (live
+BN, BN-folded, int8-quantized).
 """
 
 from __future__ import annotations
@@ -47,4 +51,48 @@ def speech_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
         state[f'bn.{i}.num_batches_tracked'] = torch.tensor(0)
     state['out.weight'] = _t(np.asarray(p['dense_out']['kernel']).T)
     state['out.bias'] = _t(p['dense_out']['bias'])
+    return state
+
+
+def image_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """Flax ResNet50 variables -> models.resnet.ImageEmotionModel state
+    dict. Module paths follow the tree (``layer1_0/conv1`` ->
+    ``layer1_0.conv1``). Per node:
+
+      * conv ``{kernel HWIO[, bias]}`` -> ``weight`` OIHW[, ``bias``];
+      * Dense ``{kernel (in, out), bias}`` -> ``weight`` (out, in), ``bias``;
+      * BN ``{scale, bias}`` + batch_stats ``{mean, var}`` -> BatchNorm2d;
+      * int8 ``{kernel_q HWIO, kernel_scale, bias[, act_scale]}`` ->
+        QuantConv buffers, ``kernel_q`` as (out, kh*kw*in), input
+        channel fastest.
+    """
+    state: Dict[str, torch.Tensor] = {}
+
+    def walk(node, stats, prefix):
+        for k, v in node.items():
+            name = prefix + k
+            if 'kernel_q' in v:
+                q = np.asarray(v['kernel_q'], np.int8)
+                state[name + '.kernel_q'] = torch.from_numpy(
+                    np.ascontiguousarray(q.reshape(-1, q.shape[-1]).T))
+                state[name + '.kernel_scale'] = _t(v['kernel_scale'])
+                state[name + '.bias'] = _t(v['bias'])
+                if 'act_scale' in v:
+                    state[name + '.act_scale'] = _t(v['act_scale']).reshape(())
+            elif 'kernel' in v:
+                K = np.asarray(v['kernel'], np.float32)
+                state[name + '.weight'] = _t(
+                    K.transpose(3, 2, 0, 1) if K.ndim == 4 else K.T)
+                if 'bias' in v:
+                    state[name + '.bias'] = _t(v['bias'])
+            elif 'scale' in v:
+                state[name + '.weight'] = _t(v['scale'])
+                state[name + '.bias'] = _t(v['bias'])
+                state[name + '.running_mean'] = _t(stats[k]['mean'])
+                state[name + '.running_var'] = _t(stats[k]['var'])
+                state[name + '.num_batches_tracked'] = torch.tensor(0)
+            else:
+                walk(v, stats.get(k, {}), name + '.')
+
+    walk(variables['params'], variables.get('batch_stats', {}), '')
     return state

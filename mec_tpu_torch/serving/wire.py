@@ -1,15 +1,19 @@
-"""Audio wire codec for the host->device link: packed 12-bit PCM.
+"""Wire codecs for the host->device link: packed 12-bit PCM and YUV 4:2:0.
 
-Port of the audio half of mec_tpu/serving/wire.py. Each clip ships as
+Port of mec_tpu/serving/wire.py. Audio: each clip ships as
 12-bit linear PCM codes with a per-clip scale, two samples packed into
 three bytes (37.5% of the float32 bytes); the engine encodes on the
 host and expands on the device. 8-bit codecs are not usable: their
 noise floor sits above power_to_db's top_db=-80 dB clamp and moves
 log-scale MFCCs (see the original's module docstring).
 
-`encode_pcm12_np` is the original's numpy encoder, copied; `decode_pcm12`
-is the same integer unpacking in torch tensor ops and runs on whatever
-device the packed bytes live on.
+Images ship as YUV 4:2:0 (BT.601 full range, chroma averaged over 2x2
+blocks): 1.5 bytes per pixel instead of 3 for uint8 RGB.
+
+`encode_pcm12_np` and `encode_yuv420_np` are the original's numpy
+encoders, copied; `decode_pcm12` and `decode_yuv420` are the same
+arithmetic in torch tensor ops and run on whatever device the wire
+bytes live on.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 _Q12 = 2047.0   # 12-bit symmetric quantizer: codes in [-2047, 2047]
+_KR, _KG, _KB = 0.299, 0.587, 0.114   # BT.601 luma weights
 
 
 def encode_pcm12_np(waves: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -54,3 +59,35 @@ def decode_pcm12(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     u1 = ((b1 & 15) << 8) | b2
     u = torch.stack([u0, u1], dim=-1).reshape(b, 2 * (m // 3))
     return (u - 2048).to(torch.float32) * (scale / _Q12)
+
+
+def encode_yuv420_np(imgs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(B, H, W, 3) uint8 RGB -> (Y (B, H, W), UV (B, H/2, W/2, 2)) uint8.
+
+    H and W must be even."""
+    b, h, w, _ = imgs.shape
+    rgb = imgs.astype(np.float32)
+    r, g, bl = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = _KR * r + _KG * g + _KB * bl
+    u = (bl - y) * (0.5 / (1.0 - _KB)) + 128.0
+    v = (r - y) * (0.5 / (1.0 - _KR)) + 128.0
+    uv = np.stack([u, v], axis=-1)
+    uv = uv.reshape(b, h // 2, 2, w // 2, 2, 2).mean(axis=(2, 4))
+    return (np.clip(np.rint(y), 0, 255).astype(np.uint8),
+            np.clip(np.rint(uv), 0, 255).astype(np.uint8))
+
+
+def decode_yuv420(y8: torch.Tensor, uv8: torch.Tensor) -> torch.Tensor:
+    """(Y, UV) uint8 -> (B, H, W, 3) float32 RGB in [0, 255], on y8's
+    device. Nearest-neighbour chroma upsampling (an expand + reshape)."""
+    y = y8.to(torch.float32)
+    uv = uv8.to(torch.float32) - 128.0
+    b, hh, hw, _ = uv.shape
+    uv = uv[:, :, None, :, None, :].expand(b, hh, 2, hw, 2, 2) \
+        .reshape(b, 2 * hh, 2 * hw, 2)
+    u, v = uv[..., 0], uv[..., 1]
+    r = y + (2.0 * (1.0 - _KR)) * v
+    g = y - (2.0 * _KB * (1.0 - _KB) / _KG) * u \
+        - (2.0 * _KR * (1.0 - _KR) / _KG) * v
+    bl = y + (2.0 * (1.0 - _KB)) * u
+    return torch.clamp(torch.stack([r, g, bl], dim=-1), 0.0, 255.0)

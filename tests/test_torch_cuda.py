@@ -12,17 +12,29 @@ log10f's last bit; MFCC0 reaches -1131, where one f32 ulp is 1.2e-4);
 K2 bit-exact (integer and compare work only); K3 equal bins except
 one-bin steps where the f64 prefix is within the worst-case f32 sum
 rounding (1025 * 2**-24 of the total) of the threshold; K4 probs
-2e-6 and penult 2e-5 (the JAX kernel test's bounds).
+2e-6 and penult 2e-5 (the JAX kernel test's bounds); K6 and K7
+bit-exact (a max moves values; K7's integer sums are exact and it rounds
+where the plain QuantConv path rounds). The image engines on the card
+and on the CPU agree in fp32 within 1e-4; in bf16 int8-static (the CPU
+engine takes the card engine's scales) decisions are equal wherever the
+top-2 margin exceeds the probability band of 2e-2 (bf16 stem and head
+GEMMs accumulate in other orders on the two devices).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mec_tpu_torch.convert.from_jax import image_state_from_jax
+from mec_tpu_torch.models.resnet import Bottleneck
 from mec_tpu_torch.ops import audio_features as af
-from mec_tpu_torch.ops import rolloff_kernel, speech_kernels, tuning_kernel
+from mec_tpu_torch.ops import (pool_kernel, resnet_kernel, rolloff_kernel,
+                               speech_kernels, tuning_kernel)
+from mec_tpu_torch.ops.quant import extract_static_scales
 from mec_tpu_torch.serving.engine import EmotionEngine
-from mec_tpu_torch.serving.synthetic_artifacts import speech_variables
+from mec_tpu_torch.serving.synthetic_artifacts import (image_variables,
+                                                       layer1_quant_params,
+                                                       speech_variables)
 
 N = 66150
 
@@ -129,3 +141,80 @@ def test_engine_on_cuda_matches_cpu(dev):
         np.testing.assert_allclose(g['all_probabilities'],
                                    r['all_probabilities'], atol=1e-4)
         np.testing.assert_allclose(g['_features'], r['_features'], atol=1e-4)
+
+
+def _layer1_blocks(dev, seed=0):
+    state = image_state_from_jax({'params': layer1_quant_params(seed)})
+    blocks = []
+    for b in range(3):
+        blk = Bottleneck(64 if b == 0 else 256, 64, downsample=b == 0,
+                         dtype=torch.bfloat16, fold_bn=True, quant=True,
+                         quant_mode='static')
+        blk.load_state_dict({k.split('.', 1)[1]: v for k, v in state.items()
+                             if k.startswith(f'layer1_{b}.')})
+        blocks.append(blk.to(dev))
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 112, 112, 64), (32, 112, 112, 64),
+                                   (2, 15, 9, 64)])
+def test_max_pool_kernel(dev, shape):
+    x = torch.from_numpy(np.random.RandomState(shape[0]).randn(*shape)
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    x[0, :3] = 0.0                                   # all-zero windows, ties
+    before = pool_kernel.max_pool_3x3s2.launches
+    k = pool_kernel.max_pool_3x3s2(x)
+    p = pool_kernel.max_pool_3x3s2_plain(x)
+    torch.cuda.synchronize()
+    assert pool_kernel.max_pool_3x3s2.launches == before + 1
+    assert k.shape == p.shape == (shape[0], (shape[1] + 1) // 2,
+                                  (shape[2] + 1) // 2, 64)
+    assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 56, 56, 64), (32, 56, 56, 64),
+                                   (2, 13, 9, 64)])
+def test_layer1_kernel(dev, shape):
+    blocks = _layer1_blocks(dev)
+    x = torch.from_numpy(np.abs(np.random.RandomState(1).randn(*shape))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    before = resnet_kernel.layer1.launches
+    with torch.inference_mode():
+        k = resnet_kernel.layer1(x, blocks)
+        p = resnet_kernel.layer1_plain(x, blocks)
+    torch.cuda.synchronize()
+    assert resnet_kernel.layer1.launches == before + 1
+    assert k.shape == p.shape == shape[:3] + (256,)
+    assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_image_engine_on_cuda_matches_cpu(dev):
+    tree, meta = image_variables(seed=3, image_size=64)
+    imgs = np.random.RandomState(4).randint(0, 256, (5, 64, 64, 3),
+                                            np.uint8)
+    for dtype in ('float32', 'bfloat16'):
+        cuda_engine = EmotionEngine(image_variables=tree, image_meta=meta,
+                                    compute_dtype=dtype, device='cuda')
+        cpu_meta = dict(meta)
+        if dtype == 'bfloat16':
+            scales = extract_static_scales(cuda_engine.image['variables'])
+            cpu_meta['int8_scales'] = {
+                cuda_engine._image_scales_key(): scales}
+        cpu_engine = EmotionEngine(image_variables=tree, image_meta=cpu_meta,
+                                   compute_dtype=dtype, device='cpu')
+        got = cuda_engine.predict_images(imgs, want_features=True)
+        ref = cpu_engine.predict_images(imgs, want_features=True)
+        band = 1e-4 if dtype == 'float32' else 2e-2
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g['all_probabilities'],
+                                       r['all_probabilities'], atol=band)
+            p = np.sort(r['all_probabilities'])
+            if p[-1] - p[-2] > band:
+                assert g['emotion'] == r['emotion']
+        if dtype == 'float32':
+            for g, r in zip(got, ref):
+                np.testing.assert_allclose(g['_features'], r['_features'],
+                                           atol=1e-4)

@@ -167,17 +167,20 @@ def test_engine_device_is_explicit():
         EmotionEngine(device='meta')
 
 
-@pytest.mark.parametrize('method,args', [
-    ('predict_texts', (['hi'],)),
-    ('predict_texts_lstm', (['hi'],)),
-    ('predict_images', (np.zeros((1, 8, 8, 3), np.uint8),)),
-    ('predict_image_paths', (['x.png'],)),
-    ('predict_multimodal', ('a.wav', 'hi', 'x.png')),
-    ('predict_multimodal_batch', ([{}],)),
+@pytest.mark.parametrize('call,item', [
+    (lambda: EmotionEngine(device='cpu').predict_texts(['hi']), '6'),
+    (lambda: EmotionEngine(device='cpu').predict_texts_lstm(['hi']), '10'),
+    (lambda: EmotionEngine(image_variables={'params': {'conv_stem': {}}},
+                           device='cpu'), '5'),
+    (lambda: EmotionEngine(device='cpu').predecode_multimodal({}), '7'),
+    (lambda: EmotionEngine(device='cpu').predict_multimodal(
+        'a.wav', 'hi', 'x.png'), '7'),
+    (lambda: EmotionEngine(device='cpu').predict_multimodal_batch([{}]), '7'),
 ])
-def test_unported_modalities_name_their_roadmap_item(method, args):
-    with pytest.raises(NotImplementedError, match=r'ROADMAP\.md queue A item'):
-        getattr(EmotionEngine(device='cpu'), method)(*args)
+def test_unported_modalities_name_their_roadmap_item(call, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf'ROADMAP\.md queue A item {item} '):
+        call()
 
 
 # ----------------------------------------------------------------------
@@ -246,7 +249,8 @@ def test_port_engine_serves_unchanged_webapp(setup, tmp_path):
     'EMOTIONS', 'NUM_EMOTIONS', 'SAMPLE_RATE', 'AUDIO_DURATION', 'N_MFCC',
     'AUDIO_SAMPLES', 'N_FFT', 'HOP_LENGTH', 'N_MELS', 'BATCH_BUCKETS',
     'BATCH_TIMEOUT_S', 'BATCH_MAX_LINGER_S', 'BATCH_MAX_PENDING',
-    'BATCH_PIPELINE_DEPTH', 'WIRE_COMPRESS'])
+    'BATCH_PIPELINE_DEPTH', 'WIRE_COMPRESS', 'IMAGE_SIZE', 'COMPUTE_DTYPE',
+    'FOLD_BN', 'IMAGE_INT8', 'INT8_STATIC'])
 def test_config_copy_matches_original(name):
     assert getattr(Config, name) == getattr(JaxConfig, name)
 
