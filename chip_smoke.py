@@ -3,38 +3,60 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Two paths are driven: speech (waveform -> pcm12 wire -> 56-dim frontend
--> SpeechDNN; kernels K1-K4) and image (uint8 RGB -> YUV 4:2:0 wire ->
+Three paths are driven: speech (waveform -> wire -> 56-dim frontend ->
+SpeechDNN; kernels K1-K4), image (uint8 RGB -> YUV 4:2:0 wire ->
 full-width 224 px ResNet50 in bf16 with BN folded and int8 static
-convs; kernels K6 stem pool, K7 layer1).
+convs; kernels K6 stem pool, K7 layer1) and the tri-modal request (the
+two, BERT-base in bf16 with int8 static encoder matmuls and the
+attention fusion in one device step; with MEC_DFT_PRECISION=highest the
+speech frontend is the framed one on kernel K5).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
-  2. build    build the CUDA kernels from mec_tpu_torch/csrc (nvcc, sm_90a)
+  2. build    build the CUDA kernels from mec_tpu_torch/csrc (one nvcc
+              per source, in parallel, sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the serving path's shapes for B=32 and B=1: K1-K4 on
-              seeded tones, chirps, noise and one silent clip; K6 and K7
-              on the stem output of seeded images through the image
-              engine's own model
+              seeded tones, chirps, noise and one silent clip; K5 on
+              Hann-windowed frames of 0.1-scale noise in both
+              precisions; K6 and K7 on the stem output of seeded images
+              through the image engine's own model
   4. engine   speech: full-width speech DNN from a numpy seed (Flax
               layout, serving/synthetic_artifacts.py; the plain model's
-              copy converted with speech_state_from_jax); the engine warms
-              up buckets (1, 8, 32), predicts B=1, 5, 32 and serves 4 WAV
-              files through the micro-batcher; checks results, the launch
-              counters (each speech kernel once per dispatch, the image
-              kernels never) and agreement with the same engine on
-              device='cpu'
+              copy converted with speech_state_from_jax) in fp32 parity
+              mode (float32 wire); the engine warms up buckets (1, 8,
+              32), predicts B=1, 5, 32 and serves 4 WAV files through the
+              micro-batcher; checks results, the launch counters (each
+              speech kernel once per dispatch, the others never) and
+              agreement with the same engine on device='cpu'
   5. image    full-width ResNet50 (224 px) from a numpy seed; a bf16
               int8-static engine calibrates on the card, warms up buckets
               (1, 8, 32), predicts B=1, 5, 32 and, if PIL is present,
               serves 4 PNGs through the micro-batcher; checks results,
               the launch counters (K6 and K7 once per dispatch, the
-              speech kernels never), agreement with the same engine on
+              others never), agreement with the same engine on
               device='cpu' (given the card's scales) and an fp32 parity
               engine on the card against device='cpu' within 1e-4
-  6. times    CUDA-event medians of each kernel and its plain version at
-              B=32, and of each engine's device step at B=1, 8, 32
-  7. report   a JSON line of the kernels, then the contract line last:
+  6. trimodal full-width speech DNN, BERT-base (12 layers, hidden 768,
+              vocab 30522), ResNet50 and fusion net from numpy seeds; a
+              bf16 engine (pcm12 and YUV wires, int8 static BERT and
+              image) built at MEC_DFT_PRECISION=high and again at
+              highest: each warms up every batch and sequence bucket,
+              serves 4 requests (WAV + text + PNG) one at a time and 4
+              through the micro-batcher; checks the launch counters (K1-K4,
+              K6, K7 once per tri-modal dispatch in both engines, K5 only
+              in the highest one), agreement of all 34 packed values with
+              the same engine on device='cpu' (given the card's scales)
+              and an fp32 parity tri-modal engine against device='cpu'
+              within 1e-4
+  7. times    CUDA-event medians of each kernel and its plain version at
+              B=32 (K5 in both precisions), of the speech and image
+              device steps at B=1, 8, 32, of the tri-modal device step at
+              B=1, 8, 32 (default and highest), of the text device step
+              at B=1, 32 and seq 16, 32, 128, the predict_multimodal host
+              wall at B=1, and one profiled window of the tri-modal step
+              (device busy share, device ops per step)
+  8. report   a JSON line of the kernels, then the contract line last:
               {"ok": true, "device": {"platform": "gpu", ...}}
 """
 
@@ -58,6 +80,28 @@ IMAGE_SEED = 6        # a random ResNet50 whose decisions differ on images()
 # and head GEMMs in other orders, so a few activations round one bf16
 # step apart and may move an int8 code downstream
 IMAGE_BAND = 2e-2
+BERT_SEED = 0
+FUSION_SEED = 1
+# bf16 tri-modal card engine against the same engine on the CPU (given
+# the card's static scales). BERT's bf16 GEMMs (attention, pooler,
+# classifier) accumulate in other orders on the two devices; one-ulp
+# bf16 differences compound over 12 layers and move int8 codes, and the
+# synthetic classifier (8x lecun scale, logits up to ~12) turns them
+# into probability differences. Measured on the H100 against the host
+# CPU with these weights: the int8-static BERT alone differs by up to
+# 0.085 between the two devices, while each is up to 0.15 from the
+# fp32 model; the band is set above the former
+TRI_BAND = 1e-1
+# K5 against its plain version: the JAX package's contract for K5
+# (tests/test_pallas.py:31-40; 0.1-scale noise frames): mag atol 5e-5,
+# P relative 5e-3 over P + 1e-6. It holds for 'bf16' too: kernel and
+# plain version sum the same exact fp32 products of bf16-rounded
+# operands and differ only in summation order.
+K5_MAG_ATOL, K5_P_REL = 5e-5, 5e-3
+TEXTS = ['i am so happy today', 'this is terrible and sad',
+         'wow what a surprise', 'i feel angry about all of this',
+         'the day was calm', 'i hate this awful news', 'really not great',
+         'yes i love it and you']
 
 
 def fail(msg):
@@ -174,6 +218,39 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def profile_step(fn, steps=10):
+    """One profiled window of `steps` calls after 5 warm-up calls: the
+    host-clock wall of one synced call (median of 10), the device time
+    of its kernels, their share of the wall, kernels per call, and the
+    kernels taking the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {}
+    for e in kern:
+        by[e.name[:60]] = by.get(e.name[:60], 0.0) \
+            + e.time_range.elapsed_us() / steps / 1e3
+    busy = sum(by.values())
+    wall = statistics.median(walls)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    return wall, busy, busy / wall, len(kern) / steps, top
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, 'mec_tpu_torch')):
         fail('mec_tpu_torch/ is not beside chip_smoke.py: run it from a '
@@ -206,8 +283,9 @@ def main():
 
     import torch.nn.functional as F
     from mec_tpu_torch.ops import audio_features as af
-    from mec_tpu_torch.ops import (pool_kernel, resnet_kernel, rolloff_kernel,
-                                   speech_kernels, tuning_kernel)
+    from mec_tpu_torch.ops import (dft_kernel, pool_kernel, resnet_kernel,
+                                   rolloff_kernel, speech_kernels,
+                                   tuning_kernel)
     from mec_tpu_torch.ops.quant import extract_static_scales
     from mec_tpu_torch.serving.engine import EmotionEngine
     from mec_tpu_torch.serving.synthetic_artifacts import (image_variables,
@@ -219,8 +297,16 @@ def main():
                 'tuning_select': tuning_kernel.tuning_select,
                 'rolloff_bins': rolloff_kernel.rolloff_bins,
                 'speech_dnn': speech_kernels.speech_dnn,
+                'dft_spectrograms': dft_kernel.dft_spectrograms,
                 'max_pool_3x3s2': pool_kernel.max_pool_3x3s2,
                 'layer1': resnet_kernel.layer1}
+    hann = af._consts(dev)['hann']
+
+    def noise_frames(B):
+        """K5's input on the framed path: Hann-windowed center frames
+        (B, 130, 2048) of 0.1-scale noise (the JAX contract's clips)."""
+        y = np.random.RandomState(B).randn(B, N).astype(np.float32) * 0.1
+        return af.frame_signal(torch.from_numpy(y).to(dev), edge=False) * hann
 
     # --------------------------------------------------------- 3 kernels
     tree = speech_variables(seed=2)
@@ -302,6 +388,27 @@ def main():
         print(f'kernel speech_dnn    B={B:2d}: probs max|err| {e_prob:.3e} '
               f'(<= 2e-6), penult {e_pen:.3e} (<= 2e-5)')
 
+        # K5, both precisions, against the plain version on the same frames
+        frames = noise_frames(B)
+        if B == 32:
+            frames32 = frames
+        for prec in dft_kernel.PRECISIONS:
+            km, kp = dft_kernel.dft_spectrograms(frames, prec)
+            pm, pp = dft_kernel.dft_spectrograms_plain(frames, prec)
+            torch.cuda.synchronize()
+            check(km.shape == (B, 130, 1025) and kp.shape == km.shape,
+                  f'dft_spectrograms B={B}: shape {tuple(km.shape)}')
+            e_mag = (km - pm).abs().max().item()
+            rel = ((kp - pp).abs() / (pp + 1e-6)).max().item()
+            check(e_mag <= K5_MAG_ATOL and rel <= K5_P_REL,
+                  f'dft_spectrograms {prec} B={B}: mag err {e_mag}, P rel '
+                  f'{rel}')
+            errs['dft_spectrograms'] = max(errs.get('dft_spectrograms', 0.0),
+                                           e_mag)
+            print(f'kernel dft_spectrograms {prec:7s} B={B:2d}: mag max|err| '
+                  f'{e_mag:.3e} (<= {K5_MAG_ATOL}), P max rel {rel:.3e} '
+                  f'(<= {K5_P_REL})')
+
     # K6, K7 on the image path's own tensors: the bf16 int8-static
     # engine's model (calibrated on the card) turns seeded 224 px images
     # into the post-ReLU stem map (K6's input) and the pooled map (K7's)
@@ -348,7 +455,6 @@ def main():
     from mec_tpu_torch.convert.from_jax import speech_state_from_jax
     from mec_tpu_torch.models.speech_dnn import SpeechDNN
     from mec_tpu_torch.ops import wav
-    from mec_tpu_torch.serving import wire
     from mec_tpu_torch.serving.batcher import EngineBatcher
 
     scaler = (mean.cpu().numpy(), scale.cpu().numpy())
@@ -381,7 +487,6 @@ def main():
         want = dispatches if name in speech_names else 0
         check(n == want, f'{name} launched {n} times in {dispatches} '
               f'speech dispatches (want {want})')
-    launches = {name: counts[name] for name in speech_names}
 
     served_ref = cpu_engine.predict_speech_paths(paths)
     checks = [(results[B], cpu_engine.predict_speech_waves(
@@ -400,13 +505,12 @@ def main():
                                                 r['all_probabilities']))))
             worst = max(worst, e)
             check(e <= 1e-4, f'probs differ from cpu by {e}')
-    # the plain unfolded model on the card, on the samples the 12-bit
-    # wire delivers: the same answer
-    packed, pcm_scale = wire.encode_pcm12_np(clips)
+    # the plain unfolded model on the card, on the float32 samples the
+    # fp32 parity engine ships: the same answer
+    check(engine._wire_waves(clips, 32)[0].dtype == np.float32,
+          'the fp32 speech engine does not ship float32 samples')
     with torch.no_grad():
-        feats = af.audio_features_56(wire.decode_pcm12(
-            torch.from_numpy(packed).to(dev),
-            torch.from_numpy(pcm_scale).to(dev)))
+        feats = af.audio_features_56(torch.from_numpy(clips).to(dev))
         m_probs, m_pen = model((feats - mean) / scale)
     got_probs = np.array([r['all_probabilities'] for r in results[32]])
     got_pen = np.stack([r['_features'] for r in results[32]])
@@ -466,7 +570,6 @@ def main():
         want = img_dispatches if name in image_names else 0
         check(n == want, f'{name} launched {n} times in {img_dispatches} '
               f'image dispatches (want {want})')
-    launches.update({name: counts[name] for name in image_names})
 
     for B in (1, 5, 32):
         for r in img_results[B]:
@@ -503,7 +606,167 @@ def main():
           f'(probs {worst32:.3e}, feat {e_feat:.3e} <= 1e-4)')
     tmp.cleanup()
 
-    # ----------------------------------------------------------- 6 times
+    # -------------------------------------------------------- 6 trimodal
+    from mec_tpu_torch.config import Config
+    from mec_tpu_torch.serving.synthetic_artifacts import (bert_variables,
+                                                           fusion_variables,
+                                                           make_vocab)
+    check(have_pil, 'the tri-modal requests need PIL to decode their PNGs')
+    t0 = time.perf_counter()
+    bert_tree = bert_variables(seed=BERT_SEED)
+    bert_kwargs = dict(vocab_size=30522, hidden_size=768, num_layers=12,
+                       num_heads=12, intermediate_size=3072,
+                       max_position=512, type_vocab_size=2, num_classes=7)
+    fusion_tree = fusion_variables(seed=FUSION_SEED)
+    vocab = make_vocab()
+    print(f'trimodal: full-width trees from numpy seeds in '
+          f'{time.perf_counter() - t0:.2f} s')
+
+    def tri_engine(device, dtype, prec, bert_meta=None):
+        """The tri-modal engine at MEC_DFT_PRECISION=prec; a bf16 engine
+        takes the image engine's card-calibrated scales, and BERT's from
+        bert_meta when given (else it calibrates on `device`)."""
+        old = Config.DFT_PRECISION
+        Config.DFT_PRECISION = prec
+        try:
+            return EmotionEngine(
+                tree, scaler, image_variables=img_tree,
+                image_meta=cpu_meta if dtype == 'bfloat16' else img_meta,
+                bert_variables=bert_tree, bert_kwargs=bert_kwargs,
+                bert_vocab=vocab, bert_meta=bert_meta,
+                fusion_variables=fusion_tree, compute_dtype=dtype,
+                device=device)
+        finally:
+            Config.DFT_PRECISION = old
+
+    tri_waves = waves(32, seed=7)
+    tri_pics = images(32, seed=8)
+    tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_')
+    requests = []
+    for i in range(8):
+        wp = os.path.join(tmp.name, f'tri{i}.wav')
+        pp = os.path.join(tmp.name, f'tri{i}.png')
+        wav.write_wav(wp, tri_waves[i + 1], 22050)
+        Image.fromarray(tri_pics[i + 1]).save(pp)
+        requests.append({'audio_path': wp, 'text': TEXTS[i],
+                         'image_path': pp})
+    seqs = sorted({s for s in Config.SEQ_BUCKETS
+                   if s < Config.MAX_TEXT_LENGTH} | {Config.MAX_TEXT_LENGTH})
+    tri = {}
+    bert_meta = None
+    tri_launches = {name: 0 for name in wrappers}
+    for prec in ('high', 'highest'):
+        t0 = time.perf_counter()
+        eng = tri_engine('cuda', 'bfloat16', prec, bert_meta)
+        check(eng._all_live and eng._dft_precision == prec
+              and eng._bert_quant_mode == 'static'
+              and eng._image_quant_mode == 'static'
+              and eng._compress, f'tri-modal engine ({prec}) is not the '
+              'bf16 int8-static compressed-wire engine')
+        scales = {eng._bert_scales_key():
+                  extract_static_scales(eng.bert['variables'])}
+        if bert_meta is None:
+            bert_meta = {'int8_scales': scales}
+            how = 'BERT calibrated on the card'
+        else:
+            check(eng._bert_scales_cached, 'BERT scales not taken')
+            how = 'BERT scales of the first engine'
+        print(f'trimodal engine ({prec}): built in '
+              f'{time.perf_counter() - t0:.2f} s ({how})')
+        for w in wrappers.values():
+            w.launches = 0
+        eng.warmup((1, 8, 32))
+        singles = [eng.predict_multimodal(**r) for r in requests[:4]]
+        batcher = EngineBatcher(eng)
+        try:
+            served = serve_through(batcher.multimodal, requests[4:])
+        finally:
+            batcher.stop()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        n_batches = batcher.stats()['multimodal']['batches']
+        dispatches = 3 + 3 * len(seqs) + 4 + n_batches
+        print(f'trimodal engine ({prec}): {dispatches} dispatches per '
+              f'modality leg (3 single-modality warmup, {3 * len(seqs)} '
+              f'tri-modal warmup, 4 single requests, {n_batches} batcher); '
+              f'launches {counts}')
+        for name, n in counts.items():
+            want = dispatches
+            if name == 'dft_spectrograms' and prec == 'high':
+                want = 0
+            check(n == want, f'{name} launched {n} times in {dispatches} '
+                  f'dispatches of the {prec} tri-modal engine (want {want})')
+            tri_launches[name] += n
+        cpu_eng = tri_engine('cpu', 'bfloat16', prec, bert_meta)
+        check(cpu_eng._bert_scales_cached and cpu_eng._image_scales_cached,
+              'cpu tri-modal engine did not take the card\'s scales')
+        for got, ref in ((singles, [cpu_eng.predict_multimodal(**r)
+                                    for r in requests[:4]]),
+                         (served, cpu_eng.predict_multimodal_batch(
+                             requests[4:]))):
+            for g, r in zip(got, ref):
+                check(set(g) == {'speech', 'text', 'image', 'fusion'}
+                      and 'attention_weights' in g['fusion'],
+                      f'tri-modal result {sorted(g)}')
+                for mod in g:
+                    check_results([g[mod]], [r[mod]], TRI_BAND,
+                                  f'tri-modal {prec} {mod}')
+        texts8 = TEXTS[:4] * 2
+        k_packed = eng._run_trimodal(tri_waves[:8], texts8, tri_pics[:8])
+        c_packed = cpu_eng._run_trimodal(tri_waves[:8], texts8, tri_pics[:8])
+        check(k_packed.shape == (8, 34) and bool(np.isfinite(k_packed).all()),
+              f'packed tri-modal rows {k_packed.shape}')
+        e_tri = float(np.abs(k_packed - c_packed).max())
+        check(e_tri <= TRI_BAND, f'tri-modal {prec}: packed values differ '
+              f'from cpu by {e_tri} > {TRI_BAND}')
+        e_parts = {part: float(np.abs(k_packed[:, a:b] - c_packed[:, a:b])
+                               .max())
+                   for part, a, b in (('speech', 0, 7), ('text', 7, 14),
+                                      ('image', 14, 21), ('fusion', 21, 28),
+                                      ('attn', 28, 31), ('decision', 31, 34))}
+        ties = 0
+        for row_k, row_c in zip(k_packed, c_packed):
+            for lo in (0, 7, 14, 21):
+                top2 = np.sort(row_c[lo:lo + 7])[-2:]
+                if top2[1] - top2[0] > TRI_BAND:
+                    check(np.argmax(row_k[lo:lo + 7])
+                          == np.argmax(row_c[lo:lo + 7]),
+                          f'tri-modal {prec}: decision differs from cpu')
+                else:
+                    ties += 1
+        labels = {mod: sorted({r[mod]['emotion'] for r in singles + served})
+                  for mod in ('speech', 'text', 'image', 'fusion')}
+        print(f'trimodal engine ({prec}): agrees with device=cpu (all 34 '
+              f'packed values max|err| {e_tri:.3e} <= {TRI_BAND}; by part '
+              + ', '.join(f'{k} {v:.3e}' for k, v in e_parts.items())
+              + f'; decisions equal, {ties} of 32 near-ties within the '
+              f'band); no fallbacks; decisions over 8 requests: {labels}')
+        if prec == 'high':
+            check(len(labels['text']) > 1, f'text decisions all '
+                  f'{labels["text"]}: the synthetic BERT does not spread')
+        tri[prec] = eng
+        del cpu_eng
+
+    # fp32 parity mode: fp32 BERT (erf GELU), fp32 ResNet50 (live BN),
+    # float32 wire, the hop-slab frontend
+    t32 = tri_engine('cuda', 'float32', 'high')
+    t32_cpu = tri_engine('cpu', 'float32', 'high')
+    k_packed = t32._run_trimodal(tri_waves[:4], TEXTS[:4], tri_pics[:4])
+    c_packed = t32_cpu._run_trimodal(tri_waves[:4], TEXTS[:4], tri_pics[:4])
+    e_tri32 = float(np.abs(k_packed - c_packed).max())
+    check(e_tri32 <= 1e-4, f'tri-modal fp32: packed values differ from cpu '
+          f'by {e_tri32} > 1e-4')
+    for row_k, row_c in zip(k_packed, c_packed):
+        for lo in (0, 7, 14, 21):
+            top2 = np.sort(row_c[lo:lo + 7])[-2:]
+            check(top2[1] - top2[0] <= 1e-4
+                  or np.argmax(row_k[lo:lo + 7]) == np.argmax(row_c[lo:lo + 7]),
+                  'tri-modal fp32: decision differs from cpu')
+    print(f'trimodal engine (fp32 parity): the card agrees with device=cpu '
+          f'(all 34 packed values max|err| {e_tri32:.3e} <= 1e-4, '
+          f'decisions equal)')
+    del t32, t32_cpu
+
+    # ----------------------------------------------------------- 7 times
     P, mags, residual, pitches, rows, x = inputs32
     stem32, pooled32 = image_inputs32
     timed = {
@@ -523,6 +786,12 @@ def main():
             lambda: pool_kernel.max_pool_3x3s2_plain(stem32)),
         'layer1': (lambda: resnet_kernel.layer1(pooled32, blocks),
                    lambda: resnet_kernel.layer1_plain(pooled32, blocks)),
+        'dft_spectrograms': (
+            lambda: dft_kernel.dft_spectrograms(frames32, 'highest'),
+            lambda: dft_kernel.dft_spectrograms_plain(frames32, 'highest')),
+        'dft_spectrograms[bf16]': (
+            lambda: dft_kernel.dft_spectrograms(frames32, 'bf16'),
+            lambda: dft_kernel.dft_spectrograms_plain(frames32, 'bf16')),
     }
     times = {}
     for name, (kern, plain) in timed.items():
@@ -544,7 +813,7 @@ def main():
             host.append((time.perf_counter() - t0) * 1e3)
         print(f'time engine device step B={B:2d}: {step:.4f} ms (CUDA '
               f'events, wire already on the card); _run_speech host wall '
-              f'{statistics.median(host):.2f} ms (median of 10, incl. pcm12 '
+              f'{statistics.median(host):.2f} ms (median of 10, incl. wire '
               f'encode + copies); {card}')
     for mode, eng in (('bf16-int8', img_engine), ('fp32', img32)):
         for B in (1, 8, 32):
@@ -560,7 +829,49 @@ def main():
                   f'host wall {statistics.median(host):.2f} ms (median of 10,'
                   f' incl. wire encode + copies); {card}')
 
-    # ---------------------------------------------------------- 7 report
+    def tri_wires(eng, B, texts):
+        ids, mask = eng._to_device(eng._text_wire(texts, B))
+        return (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids, mask,
+                eng._to_device(eng._wire_image(tri_pics[:B], B)))
+
+    for prec, eng in tri.items():
+        for B in (1, 8, 32):
+            args = tri_wires(eng, B, (TEXTS * 4)[:B])
+            step = cuda_ms(lambda: eng._trimodal_forward(*args), reps=20)
+            print(f'time trimodal device step {prec:7s} B={B:2d} seq '
+                  f'{args[1].shape[1]}: {step:.4f} ms (CUDA events, wire '
+                  f'already on the card); {card}')
+    eng = tri['high']
+    for B in (1, 32):
+        for s in seqs:
+            ids = torch.randint(5, 30522, (B, s), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(s)
+                                ).to(dev)
+            mask = torch.ones_like(ids)
+            step = cuda_ms(lambda: eng._text_forward(ids, mask), reps=20)
+            print(f'time text device step B={B:2d} seq {s:3d}: {step:.4f} ms '
+                  f'(CUDA events, BERT-base bf16 int8 static); {card}')
+    req = dict(requests[0])
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eng.predict_multimodal(**req)
+        host.append((time.perf_counter() - t0) * 1e3)
+    print(f'time predict_multimodal B=1 host wall: '
+          f'{statistics.median(host):.2f} ms (median of 10: WAV + PNG decode, '
+          f'tokenize, wire encode, copies, device step, result dicts); {card}')
+    for prec, B in (('high', 1), ('high', 32), ('highest', 32)):
+        args = tri_wires(tri[prec], B, (TEXTS * 4)[:B])
+        wall, busy, share, ops, top = profile_step(
+            lambda: tri[prec]._trimodal_forward(*args))
+        print(f'profile trimodal {prec:7s} B={B:2d}: wall {wall:.3f} ms '
+              f'(synced step, median of 10), device busy {busy:.3f} ms, '
+              f'busy share {share:.3f}, {ops:.0f} device ops/step; {card}')
+        for name, ms in top:
+            print(f'  {ms:8.4f} ms  {name}')
+    tmp.cleanup()
+
+    # ---------------------------------------------------------- 8 report
     sources = {'mfcc_mean': ('mec_tpu_torch/csrc/mfcc_mean.cu',
                              'mec_tpu/ops/pallas_kernels.py:211'),
                'tuning_select': ('mec_tpu_torch/csrc/tuning_select.cu',
@@ -572,11 +883,15 @@ def main():
                'max_pool_3x3s2': ('mec_tpu_torch/csrc/max_pool_3x3s2.cu',
                                   'mec_tpu/ops/pallas_pool.py:63'),
                'layer1': ('mec_tpu_torch/csrc/layer1_int8.cu',
-                          'mec_tpu/ops/pallas_resnet.py:189')}
+                          'mec_tpu/ops/pallas_resnet.py:189'),
+               'dft_spectrograms': ('mec_tpu_torch/csrc/dft_power.cu',
+                                    'mec_tpu/ops/pallas_kernels.py:99')}
+    # launches: the tri-modal path's runs (both engines), this slice's
+    # main path; K5's times are the 'highest' precision's
     print(card)
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda', 'source': sources[name][0],
-         'replaces': sources[name][1], 'launches': launches[name],
+         'replaces': sources[name][1], 'launches': tri_launches[name],
          'max_abs_err': errs[name], 'ms': times[name][0],
          'plain_ms': times[name][1]} for name in wrappers]}))
     print(json.dumps({'ok': True, 'device': {

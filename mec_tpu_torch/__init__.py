@@ -5,23 +5,30 @@ module here mirrors the path of its `mec_tpu` counterpart and is held
 against it by the tests in tests/test_torch_*.py. This package imports
 torch and never jax: the machine that runs it on the card has no jax,
 flax, msgpack or werkzeug, so the numpy-only host modules it needs
-(config, filters, wav, the batcher, fold, the image half of quant,
-image preprocessing) are small copies pinned to their originals by
-tests.
+(config, filters, wav, the batcher, fold, quant, image preprocessing,
+text cleaning and the WordPiece tokenizer) are small copies pinned to
+their originals by tests.
 
 What is ported so far:
 
-* the speech serving path: waveform -> 12-bit PCM wire -> on-device
-  56-dim frontend -> full-width speech DNN -> result dicts;
+* the speech serving path: waveform -> wire (12-bit PCM in bf16
+  serving mode, float32 in fp32 parity mode) -> on-device 56-dim
+  frontend (hop-slab, or with MEC_DFT_PRECISION=highest|bf16 in bf16 the
+  framed one on the DFT kernel) -> full-width speech DNN -> result dicts;
+* the text path: WordPiece ids -> BERT-base (bf16 serving: int8 static
+  encoder matmuls, tanh GELU; fp32 parity: erf GELU), sliced to a
+  sequence bucket -> result dicts;
 * the image serving path: uint8 RGB -> YUV 4:2:0 wire -> on-device
   decode and normalize -> ResNet50 -> result dicts, in bf16 serving mode
   (BN folded, int8 bottleneck convs with static scales) and in fp32
-  parity mode (live BN).
+  parity mode (live BN);
+* the attention fusion and the tri-modal request: the three encoders
+  and the fusion net in one device step -> one packed row per request.
 
-The six TPU Pallas kernels of these paths are rewritten as CUDA C++
-kernels for sm_90a (csrc/, built at first use by ops/_build.py): K1
-mfcc_mean, K2 tuning_select, K3 rolloff_bins, K4 speech_dnn, K6 the
-stem max-pool, K7 the int8 layer1.
+All seven TPU Pallas kernels are rewritten as CUDA C++ kernels for
+sm_90a (csrc/, built at first use by ops/_build.py): K1 mfcc_mean, K2
+tuning_select, K3 rolloff_bins, K4 speech_dnn, K5 dft_power (the framed
+DFT), K6 the stem max-pool, K7 the int8 layer1.
 
 Package layout:
   config.py   the subset of mec_tpu.config the slices read
@@ -29,8 +36,10 @@ Package layout:
               numpy filter tables, WAV decode, BN fold, int8 quantization,
               the nvcc build
   csrc/       the hand-written CUDA kernels
-  models/     SpeechDNN, ResNet50 and QuantConv (plain nn.Modules)
+  models/     SpeechDNN, BERT, ResNet50, the fusion net, QuantConv and
+              QuantDense (plain nn.Modules)
   image/      image decode and the ImageNet constants
+  text/       text cleaning and the WordPiece tokenizer
   convert/    JAX (Flax numpy tree) -> port parameters
   serving/    wire codecs, engine, micro-batcher, synthetic parameters
   utils/      StageTimer

@@ -54,6 +54,24 @@ class Config:
     # engine's serving mode does.
     WIRE_COMPRESS = _env_flag('MEC_WIRE_COMPRESS', True)
 
+    # Text settings (reference config.py:62)
+    MAX_TEXT_LENGTH = 128
+
+    # Padded sequence-length buckets for BERT dispatch: a batch is sliced
+    # to the smallest bucket covering its longest text. Exact: padded
+    # keys carry an additive bias of the f32 minimum, so their attention
+    # weight is exactly 0.0.
+    SEQ_BUCKETS = tuple(
+        int(x) for x in os.environ.get('MEC_SEQ_BUCKETS',
+                                       '16,32,128').split(',')
+        if x.strip())
+
+    # Serving-mode speech DFT: 'high' (default) is the hop-slab frontend;
+    # 'highest' (fp32) and 'bf16' (bf16 operands, fp32 sums) take the
+    # framed frontend on kernel K5. bf16 serving mode only: fp32 parity
+    # mode always runs the hop-slab frontend in fp32.
+    DFT_PRECISION = os.environ.get('MEC_DFT_PRECISION', 'high')
+
     # Image settings (reference config.py:65)
     IMAGE_SIZE = (224, 224)
 
@@ -70,7 +88,17 @@ class Config:
     # convs to int8 (ops/quant.py, models/qconv.py). fp32 ignores this.
     IMAGE_INT8 = _env_flag('MEC_IMAGE_INT8', True)
 
+    # bf16 serving: quantize the BERT encoder matmuls (q/k/v, attention
+    # out, FFN) to int8 (ops/quant.quantize_bert_params,
+    # models/qconv.QuantDense). fp32 ignores this.
+    BERT_INT8 = _env_flag('MEC_BERT_INT8', True)
+
     # Static int8 activation scales, calibrated once at engine load
-    # (ops/quant.calibrate_static_scales); off = per-example dynamic
-    # scales.
+    # (ops/quant.calibrate_static_scales); off = per-example (convs) or
+    # per-token (dense) dynamic scales.
     INT8_STATIC = _env_flag('MEC_INT8_STATIC', True)
+
+    # Fusion backend: 'attention' (the attention network). 'rf', the
+    # random-forest variant, is not ported (ROADMAP queue A item 7): the
+    # engine raises NotImplementedError when it is set.
+    FUSION_MODE = os.environ.get('MEC_FUSION_MODE', 'attention')

@@ -11,9 +11,11 @@ Speech: two consumers take the same tree:
   * ops.speech_kernels.make_speech_dnn -> the folded kernel weights
     (BatchNorm folded into each Dense by fold_batchnorm, flattened).
 
-Image: image_state_from_jax -> the state dict of models.resnet
-.ImageEmotionModel, for each of the three forms the engine serves (live
-BN, BN-folded, int8-quantized).
+Image, text and fusion: state_from_jax (named image_state_from_jax,
+bert_state_from_jax and fusion_state_from_jax at its call sites) -> the
+state dict of models.resnet.ImageEmotionModel (live BN, BN-folded or
+int8), models.bert.BertForSequenceClassification (plain or int8) and
+models.fusion.MultiModalFusionModel.
 """
 
 from __future__ import annotations
@@ -54,24 +56,30 @@ def speech_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     return state
 
 
-def image_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
-    """Flax ResNet50 variables -> models.resnet.ImageEmotionModel state
-    dict. Module paths follow the tree (``layer1_0/conv1`` ->
+def state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax {'params'[, 'batch_stats']} tree -> the state dict of the
+    port's module with the same names (``layer1_0/conv1`` ->
     ``layer1_0.conv1``). Per node:
 
       * conv ``{kernel HWIO[, bias]}`` -> ``weight`` OIHW[, ``bias``];
       * Dense ``{kernel (in, out), bias}`` -> ``weight`` (out, in), ``bias``;
+      * Embed ``{embedding}`` -> ``weight``;
       * BN ``{scale, bias}`` + batch_stats ``{mean, var}`` -> BatchNorm2d;
-      * int8 ``{kernel_q HWIO, kernel_scale, bias[, act_scale]}`` ->
-        QuantConv buffers, ``kernel_q`` as (out, kh*kw*in), input
-        channel fastest.
+        LayerNorm ``{scale, bias}`` (no batch_stats) -> ``weight``, ``bias``;
+      * int8 ``{kernel_q, kernel_scale, bias[, act_scale]}`` ->
+        QuantConv/QuantDense buffers, ``kernel_q`` as (out, kh*kw*in),
+        input channel fastest (a dense kernel: (out, in));
+      * a bare array (the fusion MHA's ``in_proj_weight``, already in
+        torch's (3e, e) layout, and ``in_proj_bias``) -> itself.
     """
     state: Dict[str, torch.Tensor] = {}
 
     def walk(node, stats, prefix):
         for k, v in node.items():
             name = prefix + k
-            if 'kernel_q' in v:
+            if not isinstance(v, dict):
+                state[name] = _t(v)
+            elif 'kernel_q' in v:
                 q = np.asarray(v['kernel_q'], np.int8)
                 state[name + '.kernel_q'] = torch.from_numpy(
                     np.ascontiguousarray(q.reshape(-1, q.shape[-1]).T))
@@ -85,14 +93,25 @@ def image_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
                     K.transpose(3, 2, 0, 1) if K.ndim == 4 else K.T)
                 if 'bias' in v:
                     state[name + '.bias'] = _t(v['bias'])
+            elif 'embedding' in v:
+                state[name + '.weight'] = _t(v['embedding'])
             elif 'scale' in v:
                 state[name + '.weight'] = _t(v['scale'])
                 state[name + '.bias'] = _t(v['bias'])
-                state[name + '.running_mean'] = _t(stats[k]['mean'])
-                state[name + '.running_var'] = _t(stats[k]['var'])
-                state[name + '.num_batches_tracked'] = torch.tensor(0)
+                if k in stats:
+                    state[name + '.running_mean'] = _t(stats[k]['mean'])
+                    state[name + '.running_var'] = _t(stats[k]['var'])
+                    state[name + '.num_batches_tracked'] = torch.tensor(0)
             else:
                 walk(v, stats.get(k, {}), name + '.')
 
     walk(variables['params'], variables.get('batch_stats', {}), '')
     return state
+
+
+# One walk serves every Flax tree the engine loads: ResNet50 (live BN,
+# folded or int8) -> models.resnet.ImageEmotionModel, BERT (plain or
+# int8) -> models.bert.BertForSequenceClassification, the fusion net ->
+# models.fusion.MultiModalFusionModel.
+image_state_from_jax = bert_state_from_jax = fusion_state_from_jax = \
+    state_from_jax

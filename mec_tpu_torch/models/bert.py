@@ -1,0 +1,170 @@
+"""BERT-base sequence classifier: the port of mec_tpu/models/bert.py.
+
+HuggingFace BertForSequenceClassification's inference graph, as the
+Flax model computes it: embeddings (word + position + token type, then
+LayerNorm eps 1e-12), post-LN encoder layers (explicit matmul
+attention with an additive mask and an fp32 softmax), the tanh pooler
+on [CLS] and the classifier. Returns (logits f32, the [CLS] last hidden
+state f32).
+
+The Flax dtype semantics are kept step for step, so bf16 serving rounds
+where the reference rounds:
+  * Dense(dtype) casts input and kernel to the compute dtype and adds the
+    bias in it; Embed(dtype) returns rounded rows, and the three
+    embeddings are summed in the compute dtype;
+  * LayerNorm statistics (two-pass mean and variance: flax
+    use_fast_variance=False) and the normalisation run in fp32 whatever
+    the input dtype, and the result is cast back;
+  * the additive mask is (1 - mask) * the float32 minimum, cast to the
+    compute dtype (-inf in bf16), so padded keys get weight exactly 0.0
+    and slicing a batch to a shorter sequence bucket changes no logit;
+  * GELU is erf in fp32 parity mode and tanh in bf16 serving (set by the
+    engine), evaluated in the activation dtype.
+
+With quant=True (bf16 serving) the six encoder matmuls of every layer
+are models.qconv.QuantDense (int8, per-token dynamic or calibrated
+static activation scales). Module names follow the Flax tree, so
+convert/from_jax.bert_state_from_jax maps it one to one. Not ported:
+the MoE FFN, remat and sequence parallelism (ROADMAP queue A items 11
+and 12) and dropout (inference only).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mec_tpu_torch.models.qconv import QuantDense
+
+
+class Dense(nn.Linear):
+    """flax nn.Dense(dtype): x and the kernel in the compute dtype, the
+    bias added in it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight) + self.bias
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm(use_fast_variance=False, dtype): fp32 statistics
+    and affine, the result cast to `dtype`."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mu = x.mean(dim=-1, keepdim=True)
+        d = x - mu
+        var = (d * d).mean(dim=-1, keepdim=True)
+        y = d * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+def dense(cin: int, cout: int, dtype: torch.dtype, quant: bool,
+          quant_mode: str) -> nn.Module:
+    if quant:
+        return QuantDense(cin, cout, quant_mode, dtype)
+    return Dense(cin, cout, dtype=dtype)
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, hidden: int, heads: int, dtype, quant, quant_mode):
+        super().__init__()
+        self.heads, self.dtype = heads, dtype
+        for name in ('query', 'key', 'value'):
+            self.add_module(name, dense(hidden, hidden, dtype, quant,
+                                        quant_mode))
+        # jnp.sqrt(head_dim) in f32, cast to the compute dtype; a tensor,
+        # so CUDA divides (a host-scalar division is a reciprocal multiply)
+        hd = hidden // heads
+        self.register_buffer('scale', torch.sqrt(
+            torch.tensor(float(hd), dtype=torch.float32)).to(dtype),
+            persistent=False)
+
+    def forward(self, h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        B, L, H = h.shape
+        nh = self.heads
+
+        def split(t):
+            return t.reshape(B, L, nh, H // nh).transpose(1, 2)
+
+        q, k, v = split(self.query(h)), split(self.key(h)), split(self.value(h))
+        scores = (q @ k.transpose(-1, -2)) / self.scale
+        scores = scores + bias[:, None, None, :]
+        probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+        return (probs @ v).transpose(1, 2).reshape(B, L, H)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, hidden: int, heads: int, inter: int, dtype,
+                 gelu_approximate: bool, quant: bool, quant_mode: str):
+        super().__init__()
+        self.gelu = 'tanh' if gelu_approximate else 'none'
+        self.attention_self = BertSelfAttention(hidden, heads, dtype, quant,
+                                                quant_mode)
+        self.attention_output = dense(hidden, hidden, dtype, quant,
+                                      quant_mode)
+        self.attention_norm = LayerNorm(hidden, 1e-12, dtype)
+        self.intermediate = dense(hidden, inter, dtype, quant, quant_mode)
+        self.output = dense(inter, hidden, dtype, quant, quant_mode)
+        self.output_norm = LayerNorm(hidden, 1e-12, dtype)
+
+    def forward(self, h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        ctx = self.attention_output(self.attention_self(h, bias))
+        h = self.attention_norm(h + ctx)
+        inter = F.gelu(self.intermediate(h), approximate=self.gelu)
+        return self.output_norm(h + self.output(inter))
+
+
+class BertForSequenceClassification(nn.Module):
+    def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
+                 num_layers: int = 12, num_heads: int = 12,
+                 intermediate_size: int = 3072, max_position: int = 512,
+                 type_vocab_size: int = 2, num_classes: int = 7,
+                 dtype: torch.dtype = torch.float32,
+                 gelu_approximate: bool = False, quant: bool = False,
+                 quant_mode: str = 'dynamic'):
+        super().__init__()
+        self.dtype = dtype
+        self.word_embeddings = nn.Embedding(vocab_size, hidden_size,
+                                            dtype=dtype)
+        self.position_embeddings = nn.Embedding(max_position, hidden_size,
+                                                dtype=dtype)
+        self.token_type_embeddings = nn.Embedding(type_vocab_size,
+                                                  hidden_size, dtype=dtype)
+        self.embeddings_norm = LayerNorm(hidden_size, 1e-12, dtype)
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f'layer_{i}', BertLayer(
+                hidden_size, num_heads, intermediate_size, dtype,
+                gelu_approximate, quant, quant_mode))
+        self.pooler = Dense(hidden_size, hidden_size, dtype=dtype)
+        self.classifier = Dense(hidden_size, num_classes, dtype=dtype)
+        # the f32 minimum, cast where the mask is built: -inf in bf16
+        self.register_buffer('neg', torch.tensor(
+            torch.finfo(torch.float32).min), persistent=False)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, L) integer ids and mask -> (logits (B, C) f32, [CLS]
+        hidden state (B, H) f32); token types are all 0."""
+        ids = input_ids.long()
+        L = ids.shape[1]
+        pos = torch.arange(L, device=ids.device)
+        h = (self.word_embeddings(ids) + self.position_embeddings(pos)[None]
+             + self.token_type_embeddings(torch.zeros_like(ids)))
+        h = self.embeddings_norm(h)
+        bias = ((1.0 - attention_mask.float()) * self.neg).to(self.dtype)
+        for i in range(self.num_layers):
+            h = getattr(self, f'layer_{i}')(h, bias)
+        cls = h[:, 0, :]
+        pooled = torch.tanh(self.pooler(cls))
+        logits = self.classifier(pooled)
+        return logits.float(), cls.float()

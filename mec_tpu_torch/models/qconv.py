@@ -1,5 +1,6 @@
-"""Int8-quantized convolution (serving only): the port of
-mec_tpu/models/qconv.py::QuantConv.
+"""Int8-quantized convolution and dense (serving only): the port of
+mec_tpu/models/qconv.py::QuantConv and ::QuantDense (the latter at the
+end of this module).
 
 Parameters come from ops/quant.quantize_conv through
 convert/from_jax.image_state_from_jax: ``kernel_q`` int8 laid out
@@ -21,7 +22,7 @@ the quotient by an ulp and a quantized value by one step on .5 ties.
 mode='dynamic' takes s_x = max(max|x| over H, W, C, 1e-8) / 127 per
 example and records ``act_amax`` = max_b(s_x) * 127 for
 ops/quant.calibrate_static_scales; mode='static' takes the calibrated
-scalar. QuantDense comes with the text slice.
+scalar.
 """
 
 from __future__ import annotations
@@ -97,3 +98,45 @@ class QuantConv(nn.Module):
         out = acc.float().reshape(b, ho, wo, self.cout) \
             * (sx * self.kernel_scale) + self.bias
         return out.to(self.dtype)
+
+
+class QuantDense(nn.Module):
+    """Int8 dense over the last axis of a (..., in) activation: the port
+    of mec_tpu/models/qconv.py::QuantDense.
+
+    ``kernel_q`` is int8 (out, in) (the Flax (in, out) kernel
+    transposed). Dynamic scales are per ROW (every leading index keeps
+    its own max-abs over the feature axis: per token for a (B, L, H)
+    stream), so a padded row or a bucket-mate cannot move a request's
+    logits; ``act_amax`` records max_row(s_x) * 127 for calibration.
+    Static mode takes the calibrated scalar ``act_scale``. The epilogue
+    is acc.f32 * (s_x * s_c) + bias, then the compute dtype."""
+
+    def __init__(self, cin: int, cout: int, mode: str = 'dynamic',
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if mode not in ('dynamic', 'static'):
+            raise ValueError(f'QuantDense mode {mode!r}')
+        self.cin, self.cout, self.mode, self.dtype = cin, cout, mode, dtype
+        self.register_buffer('kernel_q', torch.zeros(cout, cin,
+                                                     dtype=torch.int8))
+        self.register_buffer('kernel_scale', torch.ones(cout))
+        self.register_buffer('bias', torch.zeros(cout))
+        if mode == 'static':
+            self.register_buffer('act_scale', torch.ones(()))
+        self.act_amax = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        xf = x.float().reshape(-1, self.cin)
+        if self.mode == 'static':
+            sx = self.act_scale
+        else:
+            amax = xf.abs().amax(dim=-1, keepdim=True)
+            sx = torch.clamp_min(amax, 1e-8) / torch.full(
+                (), 127.0, device=x.device)
+            self.act_amax = sx.max() * 127.0
+        xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+        acc = int8_matmul(xq, self.kernel_q)
+        out = acc.float() * (sx * self.kernel_scale) + self.bias
+        return out.to(self.dtype).reshape(*lead, self.cout)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-All sources compile in ONE nvcc call into a shared library with a plain C
-interface, at first use, into mec_tpu_torch/_build/ (git-ignored). The
+Each source compiles in its own nvcc process, all started together, and
+one more nvcc call links the objects into a shared library with a plain
+C interface, at first use, into mec_tpu_torch/_build/ (git-ignored). The
 output name carries a hash of the sources and flags, so an edited kernel
 rebuilds and an unchanged one is reused. The library is loaded with
 ctypes; each wrapper passes tensor pointers and the current CUDA stream
@@ -33,7 +34,7 @@ BUILD_DIR = _PKG / '_build'
 # -Xptxas -v prints each kernel's registers, shared memory and spills
 # into the build log.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -67,17 +68,36 @@ def build() -> Path:
     if out.exists():
         build_info.update(seconds=0.0, log='')
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f'obj-{h.hexdigest()[:16]}.{os.getpid()}'
+    objs.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.stem}.tmp{os.getpid()}.so')
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *(str(p) for p in cu)],
-        capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        procs = [(p, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-c', '-o', str(objs / f'{p.stem}.o'),
+             str(p)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)) for p in cu]
+        logs, failed = [], []
+        for p, proc in procs:
+            logs.append(f'--- {p.name}\n{proc.communicate()[0]}')
+            if proc.returncode != 0:
+                failed.append(f'{p.name} (exit {proc.returncode})')
+        log = ''.join(logs)
+        if failed:
+            raise RuntimeError(f'nvcc failed on {", ".join(failed)}:\n{log}')
+        link = subprocess.run(
+            [nvcc, '-shared', '-o', str(tmp),
+             *(str(objs / f'{p.stem}.o') for p in cu)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(
+                f'nvcc link failed (exit {link.returncode}):\n{log}')
+        os.replace(tmp, out)   # atomic: no process loads a half-written file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed (exit {proc.returncode}):\n{log}')
-    os.replace(tmp, out)   # atomic: no process loads a half-written file
+        shutil.rmtree(objs, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0, log=log)
     return out
 

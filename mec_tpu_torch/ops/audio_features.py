@@ -1,19 +1,22 @@
-"""The 56-dim speech frontend, serving (hop-slab) branch, in torch.
+"""The 56-dim speech frontend, serving branches, in torch.
 
 Port of mec_tpu/ops/audio_features.py::audio_features_56 as the speech
-serving graph runs it (hop-slab branch, :723-734, with the rolloff
-crossing search, :753-759):
+serving graph runs it, with the rolloff crossing search (:753-759):
 
     features[b] = concat(mfcc_mean[40], chroma_mean[12],
                          [zcr, spectral_centroid, spectral_rolloff, rms])
 
+Two spectrogram branches, chosen by the DFT precision: the hop-slab
+branch ('high', :723-734) and the framed branch ('highest' or 'bf16',
+:735-743), whose windowed frames go through the DFT kernel (K5).
 librosa 0.10 semantics throughout (n_fft 2048, hop 512, periodic Hann,
 center=True with zero padding; see the original's module docstring).
 Plain tensor work stays in torch: the two hop-DFT products are fp32
 torch.matmul, as the JAX package leaves them to XLA, and so is the
-chroma product. The three per-clip kernels of the path go through their
-wrappers: mfcc_mean (K1), tuning_select (K2), rolloff_bins (K3); on a
-CPU tensor each runs its plain version.
+chroma product. The per-clip kernels of the path go through their
+wrappers: dft_spectrograms (K5, framed branch), mfcc_mean (K1),
+tuning_select (K2), rolloff_bins (K3); on a CPU tensor each runs its
+plain version.
 
 `spectral_features_4` is the speech heuristic's input and uses the
 plain rFFT STFT; it is a fallback, not the serving path.
@@ -22,12 +25,14 @@ plain rFFT STFT; it is a fallback, not the serving path.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.ops import filters
+from mec_tpu_torch.ops.dft_kernel import PRECISIONS, dft_spectrograms
 from mec_tpu_torch.ops.rolloff_kernel import rolloff_bins, rolloff_bins_plain
 from mec_tpu_torch.ops.speech_kernels import mfcc_mean
 from mec_tpu_torch.ops.tuning_kernel import tuning_select
@@ -114,6 +119,28 @@ def hop_spectrograms(y: torch.Tensor):
     vim = torch.cat([vim0, vim], dim=-1)
     P = vre * vre + vim * vim
     return torch.sqrt(P), P
+
+
+def frame_signal(y: torch.Tensor, edge: bool) -> torch.Tensor:
+    """Center-framed signal (B, N_FRAMES, N_FFT), zero or edge padding.
+    Gather-free: frame t is hops t..t+3 side by side."""
+    hops = _hops(y, edge)
+    return torch.cat([hops[:, i:i + N_FRAMES] for i in range(_HOP_RATIO)],
+                     dim=-1)
+
+
+def zcr_mean(y: torch.Tensor, threshold: float = 1e-10) -> torch.Tensor:
+    """zero_crossing_rate mean over edge-padded frames (the first slot of
+    each frame never counts, as zero_crossings' pad=True)."""
+    neg = frame_signal(y, edge=True) < -threshold
+    rate = (neg[..., 1:] != neg[..., :-1]).sum(dim=-1).to(torch.float32)
+    return (rate / N_FFT).mean(dim=-1)
+
+
+def rms_mean(y: torch.Tensor) -> torch.Tensor:
+    """rms mean over zero-padded frames."""
+    frames = frame_signal(y, edge=False)
+    return torch.sqrt((frames * frames).mean(dim=-1)).mean(dim=-1)
 
 
 def zcr_mean_hops(y: torch.Tensor, threshold: float = 1e-10) -> torch.Tensor:
@@ -245,17 +272,32 @@ def spectral_rolloff_mean(mag: torch.Tensor,
     return (bins.to(torch.float32) * float(step)).mean(dim=-1)
 
 
-def audio_features_56(y: torch.Tensor) -> torch.Tensor:
+def audio_features_56(y: torch.Tensor, precision: Optional[str] = None
+                      ) -> torch.Tensor:
     """(B, 66150) float32 waveforms -> (B, 56) features: 40 MFCC, 12 chroma,
-    then [zcr, centroid, rolloff, rms]."""
+    then [zcr, centroid, rolloff, rms].
+
+    precision (None reads Config.DFT_PRECISION): 'high' takes the
+    hop-slab frontend; 'highest' or 'bf16' the framed frontend, whose
+    Hann-windowed frames go through K5 at that precision, with zcr and
+    rms from the frames (audio_features.py:735-743)."""
+    precision = Config.DFT_PRECISION if precision is None else precision
     if y.dim() == 1:
         y = y[None, :]
-    mag, P = hop_spectrograms(y)
+    if precision == 'high':
+        mag, P = hop_spectrograms(y)
+        zcr, rms = zcr_mean_hops(y), rms_mean_hops(y)
+    elif precision in PRECISIONS:
+        frames = frame_signal(y, edge=False) * _consts(y.device)['hann']
+        mag, P = dft_spectrograms(frames, precision)
+        zcr, rms = zcr_mean(y), rms_mean(y)
+    else:
+        raise ValueError(f'DFT precision {precision!r}: expected high, '
+                         'highest or bf16')
     mfcc = mfcc_mean(P)
     chroma = chroma_mean_from_power(P)
-    spectral = torch.stack([zcr_mean_hops(y), spectral_centroid_mean(mag),
-                            spectral_rolloff_mean(mag), rms_mean_hops(y)],
-                           dim=-1)
+    spectral = torch.stack([zcr, spectral_centroid_mean(mag),
+                            spectral_rolloff_mean(mag), rms], dim=-1)
     return torch.cat([mfcc, chroma, spectral], dim=-1)
 
 
@@ -264,13 +306,11 @@ def spectral_features_4(y: torch.Tensor) -> torch.Tensor:
     heuristic fallback's input (audio_features.spectral_features_4)."""
     if y.dim() == 1:
         y = y[None, :]
-    frames = torch.nn.functional.pad(y, (N_FFT // 2, N_FFT // 2)
-                                     ).unfold(-1, N_FFT, HOP)   # (B, T, W)
-    mag = torch.fft.rfft(frames * _consts(y.device)['hann'],
-                         dim=-1).abs().to(torch.float32)
+    frames = frame_signal(y, edge=False) * _consts(y.device)['hann']
+    mag = torch.fft.rfft(frames, dim=-1).abs().to(torch.float32)
     B, T, F = mag.shape
     bins = rolloff_bins_plain(mag.reshape(B * T, F)).reshape(B, T)
     rolloff = (bins.to(torch.float32) * float(np.float32(SR / 2.0 / (F - 1)))
                ).mean(dim=-1)
-    return torch.stack([zcr_mean_hops(y), spectral_centroid_mean(mag),
-                        rolloff, rms_mean_hops(y)], dim=-1)
+    return torch.stack([zcr_mean(y), spectral_centroid_mean(mag),
+                        rolloff, rms_mean(y)], dim=-1)

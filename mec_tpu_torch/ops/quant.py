@@ -1,14 +1,15 @@
-"""Int8 post-training quantization for the serving image path.
+"""Int8 post-training quantization for the serving image and BERT paths.
 
-The image half of mec_tpu/ops/quant.py. The tree functions
-(quantize_conv, quantize_image_params, extract_static_scales,
+The port of mec_tpu/ops/quant.py. The tree functions (quantize_conv,
+quantize_image_params, quantize_bert_params, extract_static_scales,
 insert_static_scales) are numpy copies of the original's; the one
 change is the kernel_q count in quantize_image_params, a numpy walk
 here where the original walks jax.tree_util paths.
 calibrate_static_scales runs the port's dynamic-mode model
-(models/qconv.QuantConv records each conv's observed max-abs where the
-Flax module sows it) and inserts the same act_scale values.
-tests/test_torch_image.py pins each against the original.
+(models/qconv.QuantConv and QuantDense record each layer's observed
+max-abs where the Flax modules sow it) and inserts the same act_scale
+values. tests/test_torch_image.py and tests/test_torch_text.py pin each
+against the original.
 
 Scheme (standard PTQ):
 
@@ -22,7 +23,10 @@ Scheme (standard PTQ):
   dtype.
 
 The stem conv and the head stay in the compute dtype (three input
-channels; negligible FLOPs).
+channels; negligible FLOPs). In BERT the six encoder matmuls of every
+layer are quantized; embeddings, LayerNorms, the attention score and
+context products, the pooler and the classifier stay in the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from mec_tpu_torch.models.qconv import QuantConv
+from mec_tpu_torch.models.qconv import QuantConv, QuantDense
 
 # top-level modules never quantized: the stem conv and the classifier
 # head. Nested bottleneck convs (layer*_*/conv1 etc.) are matched by the
@@ -96,6 +100,37 @@ def quantize_image_params(variables: Dict) -> Dict:
     return {'params': params}
 
 
+_BERT_ATTN_DENSE = ('query', 'key', 'value')
+_BERT_LAYER_DENSE = ('attention_output', 'intermediate', 'output')
+
+
+def quantize_bert_params(variables: Dict) -> Dict:
+    """BERT params -> the encoder Dense layers of every ``layer_*``
+    quantized to int8 (models/qconv.QuantDense consumes them). Raises if
+    the tree has no encoder layers."""
+    params = dict(variables['params'])
+    n_q = 0
+    for lname, lval in params.items():
+        if not lname.startswith('layer_'):
+            continue
+        new = {}
+        for name, val in lval.items():
+            if name in _BERT_LAYER_DENSE and 'kernel' in val:
+                new[name] = quantize_conv(val)
+                n_q += 1
+            elif name == 'attention_self':
+                new[name] = {
+                    k: (quantize_conv(v) if k in _BERT_ATTN_DENSE else v)
+                    for k, v in val.items()}
+                n_q += len(_BERT_ATTN_DENSE)
+            else:
+                new[name] = val
+        params[lname] = new
+    if n_q == 0:
+        raise ValueError('quantize_bert_params: no encoder layers found')
+    return dict(variables, params=params)
+
+
 # incremented by every calibrate_static_scales run; tests assert it stays
 # flat when the scales come from image_meta['int8_scales']
 CALIBRATION_RUNS = 0
@@ -103,10 +138,11 @@ CALIBRATION_RUNS = 0
 
 @torch.no_grad()
 def calibrate_static_scales(model_dynamic: torch.nn.Module,
-                            variables: Dict, x: torch.Tensor,
+                            variables: Dict, inputs,
                             margin: float = 1.25) -> Dict:
     """Static-PTQ calibration: one forward of the DYNAMIC-mode model on
-    representative inputs (each QuantConv records its observed
+    representative inputs (a tensor, or a tuple of the model's
+    arguments; each QuantConv/QuantDense records its observed
     activation max-abs in ``act_amax``), then every quantized layer of
     ``variables`` gets a scalar ``act_scale`` = ``margin * amax / 127``.
     Module paths map to tree paths by their names (``layer1_0.conv1``
@@ -115,13 +151,13 @@ def calibrate_static_scales(model_dynamic: torch.nn.Module,
     CALIBRATION_RUNS += 1
     convs = {name.replace('.', '/'): m
              for name, m in model_dynamic.named_modules()
-             if isinstance(m, QuantConv)}
+             if isinstance(m, (QuantConv, QuantDense))}
     if not convs or any(m.mode != 'dynamic' for m in convs.values()):
         raise ValueError('calibrate_static_scales needs a dynamic-mode '
                          'quantized model')
     for m in convs.values():
         m.act_amax = None
-    model_dynamic(x)
+    model_dynamic(*(inputs if isinstance(inputs, tuple) else (inputs,)))
 
     def insert(node, prefix):
         new = {}

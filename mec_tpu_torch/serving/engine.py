@@ -1,61 +1,106 @@
-"""The inference engine: the speech and image slices of mec_tpu's
-EmotionEngine.
+"""The inference engine: the port of mec_tpu's EmotionEngine.
 
-Same method names as mec_tpu/serving/engine.py, so the web app
-(`create_app(engine=...)`) and the micro-batcher drive it unchanged:
+Same method names and results as mec_tpu/serving/engine.py, so the web
+app (`create_app(engine=...)`) and the micro-batcher drive it unchanged:
 
-  speech: waveforms -> 12-bit PCM wire (host) -> device -> decode_pcm12
-    -> 56-dim frontend (K1 mfcc_mean, K2 tuning_select, K3 rolloff_bins)
-    -> standardize -> fused speech DNN (K4) -> packed [probs | penult]
+  speech: waveforms -> wire (bf16: packed 12-bit PCM, or PCM16 with
+    MEC_WIRE_COMPRESS=0; fp32: float32 samples) -> device -> 56-dim
+    frontend (hop-slab, or in bf16 with MEC_DFT_PRECISION=highest|bf16
+    the framed frontend on K5; K1 mfcc_mean, K2 tuning_select, K3
+    rolloff_bins) -> standardize -> fused speech DNN (K4) -> packed
+    [probs | penult]
+  text: texts -> WordPiece ids/mask (host) sliced to a sequence bucket
+    -> BERT (bf16: tanh GELU, int8 encoder matmuls with static scales;
+    fp32: erf GELU) -> packed [probs | CLS]
   image: uint8 RGB -> YUV 4:2:0 wire (bf16) or raw uint8 (fp32) ->
     device -> decode + ImageNet normalize -> ResNet50 (bf16: BN folded,
     stem pool K6, int8 bottleneck convs with static scales, layer1 K7;
     fp32: live BN, fp32 convs, plain pool) -> packed [probs | feat]
+  tri-modal: the three encoders and the attention fusion in one device
+    step -> one packed (B, 34) row [s 7 | t 7 | i 7 | fusion 7 | attn 3 |
+    decision 3]
   -> result dicts
 
 Batches pad up to Config.BATCH_BUCKETS, as in the JAX engine. The device
 is explicit and never auto-detected; on 'cpu' every kernel wrapper runs
 its plain PyTorch version, on 'cuda' the hand-written kernels. Nothing
-is caught around the kernels: a kernel that fails raises. The image
-mode follows compute_dtype as in the JAX engine, but where that engine
-logs and serves a weaker mode when the BN fold, the int8 quantization
-or the static calibration fails, this one raises. The speech path does
-not depend on compute_dtype: it serves the 12-bit wire and the
-kernels' fp32 numerics in both modes. A missing model serves the
-reference's fallbacks (speech: the heuristic ladder; image: neutral),
-and an undecodable upload gets the neutral fallback (speech: that
-request; image: the whole batch), as the JAX engine does. Text,
-fusion and the MobileNetV2 image variant are not ported yet: they raise
-NotImplementedError naming the ROADMAP item.
+is caught around the device work: where the JAX engine logs and serves
+a weaker mode (a failed BN fold, int8 quantization or static
+calibration; a failed fused tri-modal step, which it re-serves per
+modality), this one raises. The K3 rolloff search stays on in the fused
+step (the JAX fused graph turned it off as a TPU custom-call
+workaround). A missing model serves the reference's fallbacks (speech:
+the heuristic ladder; text: the keyword map; image: neutral; fusion:
+the weighted average), and an undecodable upload takes the reference's
+fallback ladder (speech: that request; image: the whole batch; a
+tri-modal request: per-modality results and the weighted fusion), as
+the JAX engine does. Not ported: the random-forest fusion
+(MEC_FUSION_MODE=rf), the Bi-LSTM text model and MobileNetV2; they raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from mec_tpu_torch.config import Config
-from mec_tpu_torch.convert.from_jax import image_state_from_jax
+from mec_tpu_torch.convert.from_jax import (bert_state_from_jax,
+                                            fusion_state_from_jax,
+                                            image_state_from_jax)
 from mec_tpu_torch.image.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
                                             load_image_uint8)
+from mec_tpu_torch.models.bert import BertForSequenceClassification
+from mec_tpu_torch.models.fusion import MultiModalFusionModel
 from mec_tpu_torch.models.resnet import ImageEmotionModel
 from mec_tpu_torch.ops import audio_features as af
 from mec_tpu_torch.ops import wav
+from mec_tpu_torch.ops.dft_kernel import PRECISIONS
 from mec_tpu_torch.ops.fold import fold_conv_bn
 from mec_tpu_torch.ops.quant import (calibrate_static_scales,
                                      insert_static_scales,
+                                     quantize_bert_params,
                                      quantize_image_params)
 from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
 from mec_tpu_torch.serving import wire
+from mec_tpu_torch.text.cleaning import clean_text
+from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
+from mec_tpu_torch.utils.profiling import timer as stage_timer
 
 log = logging.getLogger('mec_tpu_torch.serving')
 
 EMOTIONS = Config.EMOTIONS
 N_FEATURES = 56
+
+# Keyword fallback map (reference text_inference.py:12-20)
+KEYWORD_MAP = {
+    'happy': ['happy', 'joy', 'glad', 'pleased', 'delighted', 'cheerful',
+              'love', 'excited'],
+    'sad': ['sad', 'down', 'unhappy', 'depressed', 'blue', 'disappointed',
+            'heartbroken'],
+    'angry': ['angry', 'mad', 'furious', 'rage', 'annoyed', 'irritated',
+              'frustrated'],
+    'fear': ['scared', 'afraid', 'fear', 'terrified', 'anxious', 'nervous',
+             'worried'],
+    'disgust': ['disgust', 'gross', 'nasty', 'revolting', 'sick'],
+    'surprise': ['surprised', 'amazed', 'astonished', 'wow', 'shocked'],
+    'neutral': [],
+}
+
+# the BertForSequenceClassification fields the port builds; the MoE
+# fields of the JAX model (num_experts, moe_capacity_factor) are not
+# ported
+_BERT_FIELDS = ('vocab_size', 'hidden_size', 'num_layers', 'num_heads',
+                'intermediate_size', 'max_position', 'type_vocab_size',
+                'num_classes')
+_FUSION_FIELDS = ('speech_dim', 'text_dim', 'image_dim', 'num_classes',
+                  'hidden_dim')
 
 
 def heuristic_probs(label: str) -> List[float]:
@@ -70,6 +115,12 @@ def result_dict(probs: Sequence[float]) -> Dict[str, Any]:
     idx = int(np.argmax(probs))
     return {'emotion': EMOTIONS[idx], 'confidence': float(probs[idx]),
             'all_probabilities': probs}
+
+
+def _fallback(label: str) -> Dict[str, Any]:
+    probs = heuristic_probs(label)
+    return {'emotion': label, 'confidence': float(max(probs)),
+            'all_probabilities': probs, '_fallback': True}
 
 
 def _bucket_for(n: int) -> int:
@@ -95,24 +146,42 @@ _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
 class EmotionEngine:
-    """Owns the speech and image parameters on one device and serves
-    batches."""
+    """Owns the speech, text, image and fusion parameters on one device
+    and serves batches."""
+
+    WEIGHTS = [0.3, 0.35, 0.35]  # speech, text, image (reference :23)
+    IMAGE_FALLBACK_LABEL = 'neutral'
 
     def __init__(self, speech_variables: Optional[Dict] = None,
                  scaler: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  *, image_variables: Optional[Dict] = None,
                  image_meta: Optional[Dict] = None,
+                 bert_variables: Optional[Dict] = None,
+                 bert_kwargs: Optional[Dict] = None,
+                 bert_vocab: Union[Dict[str, int], WordPieceTokenizer,
+                                   None] = None,
+                 bert_meta: Optional[Dict] = None,
+                 fusion_variables: Optional[Dict] = None,
+                 fusion_config: Optional[Dict] = None,
                  compute_dtype: Optional[str] = None, device):
-        """speech_variables: the JAX package's Flax SpeechDNN tree of
-        numpy arrays ({'params', 'batch_stats'}), or None for the
-        heuristic fallback. scaler: (mean, scale), each (56,); None is
-        the identity. image_variables: the Flax ResNet50 tree
-        ({'params', 'batch_stats'}), or None for the neutral fallback;
-        image_meta: the artifact's meta ('img_size', and 'int8_scales',
-        the JAX package's static-scale cache, honoured by key).
-        compute_dtype: 'bfloat16' (serving mode) or 'float32' (parity
-        mode); None reads Config.COMPUTE_DTYPE. device: 'cpu' or
-        'cuda[:n]', never guessed."""
+        """Parameters are the JAX package's Flax trees of numpy arrays;
+        a modality whose tree is None serves its fallback.
+
+        speech_variables ({'params', 'batch_stats'} SpeechDNN) and
+        scaler ((mean, scale), each (56,); None is the identity).
+        image_variables ({'params', 'batch_stats'} ResNet50) and
+        image_meta ('img_size', and 'int8_scales', the JAX package's
+        static-scale cache, honoured by key). bert_variables ({'params'}
+        BertForSequenceClassification), bert_kwargs (its widths, as the
+        JAX engine reads them from config.json), bert_vocab (a
+        WordPiece vocab {token: id} or a WordPieceTokenizer; without one
+        the text model is disabled, as the JAX engine disables it
+        without vocab.txt) and bert_meta ('int8_scales').
+        fusion_variables ({'params'} MultiModalFusionModel) and
+        fusion_config (its dims). compute_dtype: 'bfloat16' (serving
+        mode) or 'float32' (parity mode); None reads
+        Config.COMPUTE_DTYPE. device: 'cpu' or 'cuda[:n]', never
+        guessed."""
         self.device = torch.device(device)
         if self.device.type == 'cuda':
             if not torch.cuda.is_available():
@@ -124,10 +193,25 @@ class EmotionEngine:
         if name not in _DTYPES:
             raise ValueError(f'compute_dtype {name!r}: expected one of '
                              f'{sorted(_DTYPES)}')
+        if Config.FUSION_MODE == 'rf':
+            _not_ported('7 (the random-forest fusion, MEC_FUSION_MODE=rf)')
         self.compute_dtype = _DTYPES[name]
+        self._dtype_name = name
+        # the speech frontend's DFT, fixed at load as the JAX engine fixes
+        # it at trace time: Config.DFT_PRECISION in bf16 serving mode; fp32
+        # parity mode runs the hop-slab frontend in fp32 whatever it says
+        self._dft_precision = (Config.DFT_PRECISION
+                               if self.compute_dtype == torch.bfloat16
+                               else 'high')
+        if self._dft_precision not in ('high',) + PRECISIONS:
+            raise ValueError(f'MEC_DFT_PRECISION {self._dft_precision!r}: '
+                             'expected high, highest or bf16')
         self.speech: Optional[Dict[str, Any]] = None
         self.image: Optional[Dict[str, Any]] = None
-        self.bert = self.lstm = self.fusion = None
+        self.bert: Optional[Dict[str, Any]] = None
+        self.fusion: Optional[Dict[str, Any]] = None
+        self.lstm = None
+        self.bert_tokenizer: Optional[WordPieceTokenizer] = None
         self._decode_pool = None
         self._decode_pool_lock = threading.Lock()
         if speech_variables is not None:
@@ -146,35 +230,86 @@ class EmotionEngine:
         self._image_scales_cached = False
         if image_variables is not None:
             self._load_image(image_variables, dict(image_meta or {}))
+        self._bert_quant = False
+        self._bert_quant_mode = 'dynamic'
+        self._bert_scales_cached = False
+        if bert_variables is not None:
+            self._load_bert(bert_variables, dict(bert_kwargs or {}),
+                            bert_vocab, dict(bert_meta or {}))
+        if fusion_variables is not None:
+            cfg = {k: v for k, v in (fusion_config or {}).items()
+                   if k in _FUSION_FIELDS}
+            model = MultiModalFusionModel(**cfg, dtype=self.compute_dtype)
+            model.load_state_dict(fusion_state_from_jax(fusion_variables))
+            self.fusion = {'model': model.to(
+                self.device).eval().requires_grad_(False)}
 
     def _bucket(self, n: int) -> int:
         return _bucket_for(n)
+
+    def _to_device(self, arrays) -> Tuple[torch.Tensor, ...]:
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in arrays)
+
+    @property
+    def _compress(self) -> bool:
+        """The compressed wire formats (12-bit PCM, YUV 4:2:0) ship in
+        bf16 serving mode only, as in the JAX engine."""
+        return (self.compute_dtype == torch.bfloat16
+                and bool(Config.WIRE_COMPRESS))
+
+    @property
+    def _all_live(self) -> bool:
+        return (self.fusion is not None and self.speech is not None
+                and self.bert is not None and self.image is not None)
+
+    @staticmethod
+    def _insert_cached_scales(art: Dict, key: str, what: str) -> bool:
+        """Static act scales from art['meta']['int8_scales'][key] (the
+        JAX package's cache) into art['variables']; False when there is
+        no entry or it does not fit the tree (then the caller
+        recalibrates, as the JAX engine does)."""
+        ent = (art['meta'].get('int8_scales') or {}).get(key)
+        if not ent:
+            return False
+        try:
+            art['variables'] = insert_static_scales(
+                art['variables'], {k: float(v) for k, v in ent.items()})
+        except ValueError as e:
+            log.warning('stale %s int8 scale cache (%s); recalibrating',
+                        what, e)
+            return False
+        return True
 
     # ------------------------------------------------------------------
     # speech
     # ------------------------------------------------------------------
     def _wire_waves(self, waves: np.ndarray, bucket: int):
-        """Host side of the wire, row-padded to the bucket: packed 12-bit
-        PCM + per-clip scale (Config.WIRE_COMPRESS), else PCM16."""
-        if Config.WIRE_COMPRESS:
+        """Host side of the wire, row-padded to the bucket (JAX
+        engine.py:971-998): bf16 ships packed 12-bit PCM + per-clip scale
+        (Config.WIRE_COMPRESS) or PCM16; fp32 parity mode ships the
+        float32 samples."""
+        if self._compress:
             packed, scale = wire.encode_pcm12_np(waves)
             return (_pad_rows(packed, bucket), _pad_rows(scale, bucket))
-        pcm = np.clip(np.rint(waves * 32768.0),
-                      -32768, 32767).astype(np.int16)
-        return (_pad_rows(pcm, bucket),)
+        if self.compute_dtype == torch.bfloat16:
+            pcm = np.clip(np.rint(waves * 32768.0),
+                          -32768, 32767).astype(np.int16)
+            return (_pad_rows(pcm, bucket),)
+        return (_pad_rows(np.asarray(waves, np.float32), bucket),)
 
-    def _to_device(self, wire_arrays) -> Tuple[torch.Tensor, ...]:
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in wire_arrays)
-
+    @torch.inference_mode()
     def _speech_forward(self, wire_dev: Tuple[torch.Tensor, ...]
                         ) -> torch.Tensor:
-        """Device step: wire -> (bucket, 7 + 64) [probs | penult]."""
+        """Device step: wire -> (bucket, 7 + 64) [probs | penult], the
+        frontend at self._dft_precision."""
         if len(wire_dev) == 2:
             waves = wire.decode_pcm12(*wire_dev)
-        else:
+        elif wire_dev[0].dtype == torch.int16:
             waves = wire_dev[0].to(torch.float32) / 32768.0
-        feats = af.audio_features_56(waves)
+        else:
+            waves = wire_dev[0]
+        feats = af.audio_features_56(waves, self._dft_precision)
         mean, scale = self.speech['scaler']
         dnn = self.speech['dnn']
         packed = dnn((feats - mean) / scale)
@@ -212,9 +347,7 @@ class EmotionEngine:
             label = 'sad'
         else:
             label = 'neutral'
-        probs = heuristic_probs(label)
-        return {'emotion': label, 'confidence': float(max(probs)),
-                'all_probabilities': probs, '_fallback': True}
+        return _fallback(label)
 
     def predict_speech_paths(self, paths: Sequence[str],
                              want_features: bool = False) -> List[Dict]:
@@ -229,11 +362,125 @@ class EmotionEngine:
         out = self.predict_speech_waves(waves, want_features)
         for i, ok in enumerate(decoded):
             if not ok:
-                probs = heuristic_probs('neutral')
-                out[i] = {'emotion': 'neutral',
-                          'confidence': float(max(probs)),
-                          'all_probabilities': probs, '_fallback': True}
+                out[i] = _fallback('neutral')
         return out
+
+    # ------------------------------------------------------------------
+    # text
+    # ------------------------------------------------------------------
+    def _load_bert(self, variables: Dict, kwargs: Dict, vocab,
+                   meta: Dict) -> None:
+        """Quantize and calibrate as the JAX engine does at load
+        (engine.py:461-474, :645-680, :747-758), raising where it would
+        log and serve a weaker mode; then build the model."""
+        if kwargs.get('num_experts'):
+            _not_ported('12 (the mixture-of-experts BERT FFN)')
+        kwargs = {k: v for k, v in kwargs.items() if k in _BERT_FIELDS}
+        if isinstance(vocab, WordPieceTokenizer):
+            self.bert_tokenizer = vocab
+        elif vocab is not None:
+            self.bert_tokenizer = WordPieceTokenizer(dict(vocab))
+        else:
+            log.warning('BERT vocab missing; text model disabled')
+            return
+        bf16 = self.compute_dtype == torch.bfloat16
+        if bf16 and Config.BERT_INT8:
+            variables = quantize_bert_params(variables)
+            self._bert_quant = True
+        self.bert = {'variables': variables, 'kwargs': kwargs, 'meta': meta}
+        if self._bert_quant and Config.INT8_STATIC:
+            self._calibrate_bert_static()
+            self._bert_quant_mode = 'static'
+        model = BertForSequenceClassification(
+            **kwargs, dtype=self.compute_dtype, gelu_approximate=bf16,
+            quant=self._bert_quant, quant_mode=self._bert_quant_mode)
+        model.load_state_dict(bert_state_from_jax(self.bert['variables']))
+        self.bert['model'] = model.to(self.device).eval().requires_grad_(
+            False)
+
+    def _bert_scales_key(self) -> str:
+        """The JAX engine's BERT scale-cache key (engine.py:653-655)."""
+        gelu = int(self.compute_dtype == torch.bfloat16)
+        return (f'bert|seq{Config.MAX_TEXT_LENGTH}|{self._dtype_name}|'
+                f'gelu{gelu}|m1.25|v1')
+
+    def _calibrate_bert_static(self) -> None:
+        """Static act scales for the quantized BERT tree: from
+        meta['int8_scales'][key] when present and complete, else one
+        dynamic-mode forward on the device of seven keyworded sentences,
+        one per emotion, at MAX_TEXT_LENGTH (engine.py:670-675)."""
+        if self._insert_cached_scales(self.bert, self._bert_scales_key(),
+                                      'BERT'):
+            self._bert_scales_cached = True
+            return
+        dyn = BertForSequenceClassification(
+            **self.bert['kwargs'], dtype=self.compute_dtype,
+            gelu_approximate=self.compute_dtype == torch.bfloat16,
+            quant=True, quant_mode='dynamic')
+        dyn.load_state_dict(bert_state_from_jax(self.bert['variables']))
+        dyn = dyn.to(self.device).eval()
+        ids, mask = self.bert_tokenizer.encode_batch(
+            [f'i feel so {e} about all of this today' for e in EMOTIONS],
+            Config.MAX_TEXT_LENGTH)
+        self.bert['variables'] = calibrate_static_scales(
+            dyn, self.bert['variables'], self._to_device((ids, mask)))
+
+    @torch.inference_mode()
+    def _text_forward(self, ids: torch.Tensor, mask: torch.Tensor
+                      ) -> torch.Tensor:
+        """Device step: (bucket, L) ids/mask -> (bucket, 7 + H)
+        [probs | CLS] (JAX bert_fwd, engine.py:836-839)."""
+        logits, cls = self.bert['model'](ids, mask)
+        return torch.cat([torch.softmax(logits, dim=-1), cls], dim=-1)
+
+    def _seq_slice(self, ids: np.ndarray, mask: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """Slice BERT inputs to the smallest Config.SEQ_BUCKETS bucket
+        covering the batch's longest real sequence. Exact: padded keys'
+        additive bias gives them attention weight 0.0, so dropping them
+        cannot change any logit."""
+        longest = int(mask.sum(axis=1).max()) if mask.size else 1
+        for s in sorted(Config.SEQ_BUCKETS):
+            if longest <= s and s <= ids.shape[1]:
+                return ids[:, :s], mask[:, :s]
+        return ids, mask
+
+    def _text_wire(self, texts: Sequence[str], bucket: int):
+        ids, mask = self._seq_slice(*self.bert_tokenizer.encode_batch(
+            list(texts), Config.MAX_TEXT_LENGTH))
+        return _pad_rows(ids, bucket), _pad_rows(mask, bucket)
+
+    def text_keyword_heuristic(self, text: str) -> Dict[str, Any]:
+        """Keyword-map fallback (reference text_inference.py:53-70)."""
+        cleaned = clean_text(text)
+        selected = 'neutral'
+        for label, keywords in KEYWORD_MAP.items():
+            for kw in keywords:
+                if f' {kw} ' in f' {cleaned} ':
+                    selected = label
+                    break
+            if selected != 'neutral':
+                break
+        return _fallback(selected)
+
+    def predict_texts(self, texts: Sequence[str],
+                      want_features: bool = False) -> List[Dict]:
+        if self.bert is None:
+            return [self.text_keyword_heuristic(t) for t in texts]
+        b = self._bucket(len(texts))
+        packed = self._text_forward(*self._to_device(
+            self._text_wire(texts, b)))[:len(texts)].cpu().numpy()
+        n = len(EMOTIONS)
+        out = []
+        for i in range(len(texts)):
+            r = result_dict(packed[i, :n])
+            if want_features:
+                r['_features'] = packed[i, n:]
+            out.append(r)
+        return out
+
+    def predict_texts_lstm(self, texts):
+        _not_ported('10 (Bi-LSTM text variant)')
 
     # ------------------------------------------------------------------
     # image
@@ -296,15 +543,7 @@ class EmotionEngine:
     def _image_scales_key(self) -> str:
         """The JAX engine's scale-cache key (engine.py:614-615)."""
         h, w = self._image_size
-        dtype = 'bfloat16' if self.compute_dtype == torch.bfloat16 \
-            else 'float32'
-        return f'image|resnet50|{h}x{w}|{dtype}|m1.25|v1'
-
-    def _cached_scales(self, key: str) -> Optional[Dict[str, float]]:
-        ent = (self.image['meta'].get('int8_scales') or {}).get(key)
-        if ent:
-            return {k: float(v) for k, v in ent.items()}
-        return None
+        return f'image|resnet50|{h}x{w}|{self._dtype_name}|m1.25|v1'
 
     def _calibrate_image_static(self) -> None:
         """Static act scales for the quantized tree: from
@@ -312,16 +551,10 @@ class EmotionEngine:
         dynamic-mode forward of the calibration batch on the device. The
         JAX engine also persists new scales into the .mecp meta; the
         port reads no .mecp (ROADMAP A14), so it does not."""
-        cached = self._cached_scales(self._image_scales_key())
-        if cached is not None:
-            try:
-                self.image['variables'] = insert_static_scales(
-                    self.image['variables'], cached)
-                self._image_scales_cached = True
-                return
-            except ValueError as e:
-                log.warning('stale image int8 scale cache (%s); '
-                            'recalibrating', e)
+        if self._insert_cached_scales(self.image, self._image_scales_key(),
+                                      'image'):
+            self._image_scales_cached = True
+            return
         dyn = ImageEmotionModel(dtype=self.compute_dtype, fold_bn=True,
                                 quant=True, quant_mode='dynamic')
         dyn.load_state_dict(image_state_from_jax(self.image['variables']))
@@ -334,8 +567,8 @@ class EmotionEngine:
         """bf16 with Config.WIRE_COMPRESS ships YUV 4:2:0 (half the
         uint8 RGB bytes; needs even H, W), otherwise raw uint8 RGB.
         Row-padded to the bucket."""
-        if (self.compute_dtype == torch.bfloat16 and Config.WIRE_COMPRESS
-                and imgs.shape[1] % 2 == 0 and imgs.shape[2] % 2 == 0):
+        if self._compress and imgs.shape[1] % 2 == 0 \
+                and imgs.shape[2] % 2 == 0:
             y8, uv8 = wire.encode_yuv420_np(imgs)
             return (_pad_rows(y8, bucket), _pad_rows(uv8, bucket))
         return (_pad_rows(np.ascontiguousarray(imgs, np.uint8), bucket),)
@@ -360,13 +593,8 @@ class EmotionEngine:
         packed = out[:imgs.shape[0]].cpu().numpy()
         return packed[:, :len(EMOTIONS)], packed[:, len(EMOTIONS):]
 
-    IMAGE_FALLBACK_LABEL = 'neutral'
-
     def image_fallback(self) -> Dict[str, Any]:
-        probs = heuristic_probs(self.IMAGE_FALLBACK_LABEL)
-        return {'emotion': self.IMAGE_FALLBACK_LABEL,
-                'confidence': float(max(probs)),
-                'all_probabilities': probs, '_fallback': True}
+        return _fallback(self.IMAGE_FALLBACK_LABEL)
 
     def predict_images(self, imgs_u8: np.ndarray,
                        want_features: bool = False) -> List[Dict]:
@@ -383,19 +611,22 @@ class EmotionEngine:
             out.append(r)
         return out
 
-    def _decode_images(self, paths: Sequence[str]) -> np.ndarray:
-        """Decode + resize on a small thread pool (PIL releases the GIL
-        in its decode and resize). Raises on the first bad image."""
-        size = self._image_size
-        if len(paths) <= 1:
-            return np.stack([load_image_uint8(p, size) for p in paths])
+    def _ensure_decode_pool(self):
         if self._decode_pool is None:
             with self._decode_pool_lock:
                 if self._decode_pool is None:
                     from concurrent.futures import ThreadPoolExecutor
                     self._decode_pool = ThreadPoolExecutor(
                         max_workers=4, thread_name_prefix='mec-decode')
-        return np.stack(list(self._decode_pool.map(
+        return self._decode_pool
+
+    def _decode_images(self, paths: Sequence[str]) -> np.ndarray:
+        """Decode + resize on a small thread pool (PIL releases the GIL
+        in its decode and resize). Raises on the first bad image."""
+        size = self._image_size
+        if len(paths) <= 1:
+            return np.stack([load_image_uint8(p, size) for p in paths])
+        return np.stack(list(self._ensure_decode_pool().map(
             lambda p: load_image_uint8(p, size), paths)))
 
     def predict_image_paths(self, paths: Sequence[str],
@@ -409,33 +640,276 @@ class EmotionEngine:
             return [self.image_fallback() for _ in paths]
         return self.predict_images(imgs, want_features)
 
+    # ------------------------------------------------------------------
+    # fusion
+    # ------------------------------------------------------------------
+    def fuse_weighted(self, speech_probs, text_probs, image_probs
+                      ) -> Dict[str, Any]:
+        """Weighted-average fallback
+        (reference multimodal_fusion.py:184-199)."""
+        n = len(EMOTIONS)
+        s = np.array(speech_probs) if speech_probs is not None else np.zeros(n)
+        t = np.array(text_probs) if text_probs is not None else np.zeros(n)
+        i = np.array(image_probs) if image_probs is not None else np.zeros(n)
+        weighted = (self.WEIGHTS[0] * s + self.WEIGHTS[1] * t
+                    + self.WEIGHTS[2] * i)
+        if weighted.sum() > 0:
+            weighted = weighted / weighted.sum()
+        idx = int(np.argmax(weighted))
+        return {'emotion': EMOTIONS[idx],
+                'confidence': float(weighted[idx]),
+                'all_probabilities': weighted.tolist()}
+
+    @torch.inference_mode()
+    def _fusion_forward(self, s_feat, t_feat, i_feat, s_p, t_p, i_p
+                        ) -> torch.Tensor:
+        """Device step: -> (B, 7 + 3 + 3) [probs | attention w | decision
+        w] (JAX fusion_fwd, engine.py:852-856)."""
+        logits, aw, dw = self.fusion['model'](s_feat, t_feat, i_feat,
+                                              s_p, t_p, i_p)
+        return torch.cat([torch.softmax(logits, dim=-1), aw, dw], dim=-1)
+
+    def fuse_attention(self, s_feat, t_feat, i_feat, s_p, t_p, i_p
+                       ) -> Dict[str, Any]:
+        packed = self._fusion_forward(*self._to_device(
+            np.asarray(a, np.float32)[None]
+            for a in (s_feat, t_feat, i_feat, s_p, t_p, i_p)))[0]
+        packed = packed.cpu().numpy()
+        return self._fusion_result(packed[:7], packed[7:10], packed[10:13])
+
+    @staticmethod
+    def _fusion_result(probs, aw, dw) -> Dict[str, Any]:
+        r = result_dict(probs)
+        r['attention_weights'] = {'speech': float(aw[0]),
+                                  'text': float(aw[1]),
+                                  'image': float(aw[2])}
+        r['decision_weights'] = {'speech': float(dw[0]),
+                                 'text': float(dw[1]),
+                                 'image': float(dw[2])}
+        return r
+
+    def _fusion_from_packed(self, row: np.ndarray) -> Dict[str, Any]:
+        """Slice the fusion tail of a packed tri-modal output row."""
+        return self._fusion_result(row[21:28], row[28:31], row[31:34])
+
+    # ------------------------------------------------------------------
+    # tri-modal (reference multimodal_fusion.py:244-287)
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def _trimodal_forward(self, w_wire: Tuple[torch.Tensor, ...],
+                          ids: torch.Tensor, mask: torch.Tensor,
+                          i_wire: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """Device step of the tri-modal request (JAX trimodal_fwd,
+        engine.py:879-894): the three encoders and the fusion ->
+        (bucket, 34) [s 7 | t 7 | i 7 | fusion 7 | attn 3 | decision 3]."""
+        n = len(EMOTIONS)
+        s = self._speech_forward(w_wire)
+        t = self._text_forward(ids, mask)
+        im = self._image_forward(i_wire)
+        f = self._fusion_forward(s[:, n:], t[:, n:], im[:, n:],
+                                 s[:, :n], t[:, :n], im[:, :n])
+        return torch.cat([s[:, :n], t[:, :n], im[:, :n], f], dim=-1)
+
+    def _run_trimodal(self, waves: np.ndarray, texts: Sequence[str],
+                      imgs: np.ndarray) -> np.ndarray:
+        """Host side of one tri-modal dispatch: (n, 66150) waves, n
+        texts, (n, H, W, 3) uint8 -> the packed (n, 34) rows."""
+        n = len(texts)
+        b = self._bucket(n)
+        out = self._trimodal_forward(
+            self._to_device(self._wire_waves(waves, b)),
+            *self._to_device(self._text_wire(texts, b)),
+            self._to_device(self._wire_image(imgs, b)))
+        return out[:n].cpu().numpy()
+
+    def _trimodal_result(self, row: np.ndarray) -> Dict[str, Dict]:
+        return {'speech': result_dict(row[:7]),
+                'text': result_dict(row[7:14]),
+                'image': result_dict(row[14:21]),
+                'fusion': self._fusion_from_packed(row)}
+
+    def predict_multimodal(self, audio_path: Optional[str] = None,
+                           text: Optional[str] = None,
+                           image_path: Optional[str] = None
+                           ) -> Dict[str, Dict]:
+        if self._all_live and audio_path and text and image_path:
+            return self._predict_trimodal_fused(audio_path, text,
+                                                image_path)
+        results: Dict[str, Dict] = {}
+        if audio_path:
+            results['speech'] = self.predict_speech_paths([audio_path])[0]
+        if text:
+            results['text'] = self.predict_texts([text])[0]
+        if image_path:
+            results['image'] = self.predict_image_paths([image_path])[0]
+        if len(results) > 1:
+            results['fusion'] = self.fuse_weighted(
+                results.get('speech', {}).get('all_probabilities'),
+                results.get('text', {}).get('all_probabilities'),
+                results.get('image', {}).get('all_probabilities'))
+        for r in results.values():
+            r.pop('_features', None)
+        return results
+
+    def _predict_trimodal_fused(self, audio_path: str, text: str,
+                                image_path: str) -> Dict[str, Dict]:
+        """One device step for a full tri-modal request. An undecodable
+        upload takes the fallback ladder (_predict_degraded: the same
+        dicts the JAX engine's per-modality path gives it); the device
+        step itself is not guarded."""
+        request = {'text': text, 'image_path': image_path}
+        try:
+            wave = wav.load_and_fix_length(audio_path)[0]
+        except Exception as e:  # degrade-don't-fail
+            log.warning('audio decode failed for %s: %s', audio_path, e)
+            return self._predict_degraded(request, audio_failed=True)
+        try:
+            img = load_image_uint8(image_path, self._image_size)
+        except Exception as e:  # degrade-don't-fail
+            log.warning('image decode failed: %s', e)
+            return self._predict_degraded(request, wave=wave,
+                                          image_failed=True)
+        return self._trimodal_result(
+            self._run_trimodal(wave[None], [text], img[None])[0])
+
+    def predecode_multimodal(self, request: Dict) -> Dict:
+        """Decode a tri-modal request's uploads in the caller's thread
+        (the web app's request thread), so batch formation never waits on
+        host decode; predict_multimodal_batch consumes the 'wave' /
+        'image' arrays directly. A failed decode keeps only the path: the
+        batch path re-attempts it and degrades that request."""
+        out = dict(request)
+        if request.get('audio_path') and out.get('wave') is None:
+            try:
+                out['wave'] = wav.load_and_fix_length(
+                    request['audio_path'])[0]
+            except Exception:
+                pass
+        if request.get('image_path') and out.get('image') is None:
+            try:
+                out['image'] = load_image_uint8(request['image_path'],
+                                                self._image_size)
+            except Exception:
+                pass
+        return out
+
+    def predict_multimodal_batch(self, requests: Sequence[Dict]
+                                 ) -> List[Dict[str, Dict]]:
+        """Batched tri-modal: requests with all three inputs share one
+        device step; the rest take the per-modality path. Requests may
+        carry pre-decoded 'wave'/'image' arrays (predecode_multimodal).
+        One undecodable upload degrades only its own request."""
+        out: List[Optional[Dict]] = [None] * len(requests)
+        degraded: Dict[int, Dict[str, Any]] = {}
+        full_idx = [i for i, r in enumerate(requests)
+                    if r.get('audio_path') and r.get('text')
+                    and r.get('image_path')]
+        good = []
+        if self._all_live and full_idx:
+            def ready(val):
+                f: Future = Future()
+                f.set_result(val)
+                return f
+
+            pool = (self._ensure_decode_pool()
+                    if any(requests[i].get('wave') is None
+                           or requests[i].get('image') is None
+                           for i in full_idx) else None)
+            t_dec = time.perf_counter()
+            futs = [(i,
+                     ready(requests[i]['wave'])
+                     if requests[i].get('wave') is not None else
+                     pool.submit(lambda p: wav.load_and_fix_length(p)[0],
+                                 requests[i]['audio_path']),
+                     ready(requests[i]['image'])
+                     if requests[i].get('image') is not None else
+                     pool.submit(load_image_uint8,
+                                 requests[i]['image_path'],
+                                 self._image_size))
+                    for i in full_idx]
+            for i, wf, imf in futs:
+                try:
+                    w = wf.result()
+                except Exception as e:  # degrade-don't-fail
+                    log.warning('batch audio decode failed (%s): %s',
+                                requests[i]['audio_path'], e)
+                    imf.cancel()
+                    degraded[i] = {'audio_failed': True}
+                    continue
+                try:
+                    good.append((i, w, imf.result()))
+                except Exception as e:  # degrade-don't-fail
+                    log.warning('batch image decode failed (%s): %s',
+                                requests[i]['image_path'], e)
+                    degraded[i] = {'wave': w, 'image_failed': True}
+            stage_timer.record('trimodal.decode_stage_ms',
+                               (time.perf_counter() - t_dec) * 1e3)
+        if good:
+            with stage_timer.span('trimodal.dispatch_fetch'):
+                packed = self._run_trimodal(
+                    np.stack([w for _i, w, _im in good]),
+                    [requests[i]['text'] for i, _w, _im in good],
+                    np.stack([im for _i, _w, im in good]))
+            for row, (i, _w, _im) in zip(packed, good):
+                out[i] = self._trimodal_result(row)
+        for i, r in enumerate(requests):
+            if out[i] is None:
+                if i in degraded:
+                    out[i] = self._predict_degraded(r, **degraded[i])
+                else:
+                    out[i] = self.predict_multimodal(r.get('audio_path'),
+                                                     r.get('text'),
+                                                     r.get('image_path'))
+        return out
+
+    def _predict_degraded(self, request: Dict, wave=None,
+                          audio_failed: bool = False,
+                          image_failed: bool = False) -> Dict[str, Dict]:
+        """Full tri-modal request with one undecodable upload:
+        per-modality results + weighted fusion, exactly what the JAX
+        engine's single-request ladder produces, computed from what
+        already decoded."""
+        results: Dict[str, Dict] = {}
+        if audio_failed:
+            results['speech'] = _fallback('neutral')
+        elif wave is not None:
+            results['speech'] = self.predict_speech_waves(wave[None])[0]
+        results['text'] = self.predict_texts([request['text']])[0]
+        results['image'] = (self.image_fallback() if image_failed
+                            else self.predict_image_paths(
+                                [request['image_path']])[0])
+        results['fusion'] = self.fuse_weighted(
+            results['speech'].get('all_probabilities'),
+            results['text'].get('all_probabilities'),
+            results['image'].get('all_probabilities'))
+        for r in results.values():
+            r.pop('_features', None)
+        return results
+
     def warmup(self, buckets: Sequence[int] = (1,)) -> None:
-        """Run every serving bucket of each loaded model once before
-        traffic: builds the kernels and their constant tables and warms
-        the allocator."""
+        """Run every serving shape of each loaded model once before
+        traffic: each batch bucket, and for text and the tri-modal step
+        each sequence bucket plus the full length (engine.py:921-965).
+        Builds the kernels and their constant tables and warms the
+        allocator."""
+        seqs = sorted({s for s in Config.SEQ_BUCKETS
+                       if s < Config.MAX_TEXT_LENGTH}
+                      | {Config.MAX_TEXT_LENGTH})
         for b in buckets:
             b = self._bucket(b)
+            waves = np.zeros((b, af.N_SAMPLES), np.float32)
+            imgs = np.zeros((b,) + self._image_size + (3,), np.uint8)
             if self.speech is not None:
-                self._run_speech(np.zeros((b, af.N_SAMPLES), np.float32))
+                self._run_speech(waves)
             if self.image is not None:
-                self._run_image(np.zeros((b,) + self._image_size + (3,),
-                                         np.uint8))
-
-    # ------------------------------------------------------------------
-    # not ported yet
-    # ------------------------------------------------------------------
-    def predict_texts(self, texts, want_features=False):
-        _not_ported('6 (text branch)')
-
-    def predict_texts_lstm(self, texts):
-        _not_ported('10 (Bi-LSTM text variant)')
-
-    def predict_multimodal(self, audio_path=None, text=None,
-                           image_path=None):
-        _not_ported('7 (fusion and the fused forward)')
-
-    def predecode_multimodal(self, request):
-        _not_ported('7 (fusion and the fused forward)')
-
-    def predict_multimodal_batch(self, requests):
-        _not_ported('7 (fusion and the fused forward)')
+                self._run_image(imgs)
+            if self.bert is None:
+                continue
+            w_wire = self._to_device(self._wire_waves(waves, b))
+            i_wire = self._to_device(self._wire_image(imgs, b))
+            for s in seqs:
+                ids, mask = self._to_device((np.zeros((b, s), np.int32),
+                                             np.ones((b, s), np.int32)))
+                self._text_forward(ids, mask)
+                if self._all_live:
+                    self._trimodal_forward(w_wire, ids, mask, i_wire)

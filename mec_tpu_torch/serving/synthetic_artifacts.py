@@ -1,15 +1,18 @@
-"""Random-init speech and image parameters for smoke runs and tests.
+"""Random-init speech, image, BERT and fusion parameters for smoke runs
+and tests.
 
-The port's counterpart of mec_tpu/serving/synthetic_artifacts.py, for the
-ported slices: the reference ships no weights, so the serving graph runs
-on random ones, made with numpy from a seed (jax.random keys and torch
-generators give different numbers from one seed; numpy feeds both
-packages the same). The tree has the Flax layout the JAX package uses,
-which is what the port's engine takes.
+The port's counterpart of mec_tpu/serving/synthetic_artifacts.py: the
+reference ships no weights, so the serving graph runs on random ones,
+made with numpy from a seed (jax.random keys and torch generators give
+different numbers from one seed; numpy feeds both packages the same).
+The trees have the Flax layout the JAX package uses, which is what the
+port's engine takes; make_vocab is the JAX package's synthetic
+WordPiece vocab.
 """
 
 from __future__ import annotations
 
+import string
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -106,6 +109,127 @@ def image_variables(seed: int = 0, image_size: int = 224,
         'bias': (0.05 * rng.randn(n_classes)).astype(np.float32)}
     return ({'params': params, 'batch_stats': stats},
             {'img_size': image_size})
+
+
+_WORDS = ('the a i you it is was happy sad angry fear disgust surprise '
+          'neutral love hate great terrible wonderful awful day today feel '
+          'feeling so very really not no yes and or but this that').split()
+
+
+def make_vocab() -> Dict[str, int]:
+    """Small, deterministic WordPiece-compatible vocab (a copy of
+    mec_tpu/serving/synthetic_artifacts.py::make_vocab)."""
+    tokens = ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]']
+    tokens += list(string.ascii_lowercase) + list(string.digits)
+    tokens += ['##' + c for c in string.ascii_lowercase + string.digits]
+    tokens += _WORDS
+    return {t: i for i, t in enumerate(tokens)}
+
+
+def bert_variables(seed: int = 0, vocab_size: int = 30522,
+                   hidden_size: int = 768, num_layers: int = 12,
+                   intermediate_size: int = 3072,
+                   max_position: int = 512, type_vocab_size: int = 2,
+                   num_classes: int = 7) -> Dict:
+    """BERT {'params'} tree of float32 numpy arrays in the Flax layout of
+    mec_tpu/models/bert.py, at the bert-base-uncased widths by default
+    (its 12 heads split the hidden width and are no shape of the tree).
+
+    The encoder is BERT's own init: embeddings and kernels N(0, 0.02),
+    zero biases, LayerNorm scale 1. At that scale every text's [CLS]
+    state is dominated by the [CLS] embedding itself and all decisions
+    come out alike, so two changes make random weights text-dependent:
+    the embedding rows of make_vocab's five special tokens (ids 0-4)
+    and of position 0 and token type 0 are zero, so the [CLS] state
+    starts at zero and is made by attention over the text alone; and
+    the pooler is at lecun scale and the classifier at 8x lecun scale
+    with zero-mean columns.
+    """
+    rng = np.random.RandomState(seed)
+
+    def normal(*shape, std=0.02):
+        return (std * rng.randn(*shape)).astype(np.float32)
+
+    def dense(din, dout):
+        return {'kernel': normal(din, dout),
+                'bias': np.zeros(dout, np.float32)}
+
+    def norm(d):
+        return {'scale': np.ones(d, np.float32),
+                'bias': np.zeros(d, np.float32)}
+
+    h, f = hidden_size, intermediate_size
+    params = {'word_embeddings': {'embedding': normal(vocab_size, h)},
+              'position_embeddings': {'embedding': normal(max_position, h)},
+              'token_type_embeddings': {
+                  'embedding': normal(type_vocab_size, h)},
+              'embeddings_norm': norm(h)}
+    params['word_embeddings']['embedding'][:5] = 0.0
+    params['position_embeddings']['embedding'][0] = 0.0
+    params['token_type_embeddings']['embedding'][0] = 0.0
+    for i in range(num_layers):
+        params[f'layer_{i}'] = {
+            'attention_self': {n: dense(h, h)
+                               for n in ('query', 'key', 'value')},
+            'attention_output': dense(h, h),
+            'attention_norm': norm(h),
+            'intermediate': dense(h, f),
+            'output': dense(f, h),
+            'output_norm': norm(h)}
+    params['pooler'] = {'kernel': normal(h, h, std=1.0 / np.sqrt(h)),
+                        'bias': np.zeros(h, np.float32)}
+    k = normal(h, num_classes, std=8.0 / np.sqrt(h))
+    params['classifier'] = {'kernel': k - k.mean(axis=0),
+                            'bias': np.zeros(num_classes, np.float32)}
+    return {'params': params}
+
+
+def fusion_variables(seed: int = 0, speech_dim: int = 64,
+                     text_dim: int = 768, image_dim: int = 512,
+                     hidden_dim: int = 256, num_classes: int = 7) -> Dict:
+    """MultiModalFusionModel {'params'} tree of float32 numpy arrays in
+    the Flax layout of mec_tpu/models/fusion.py: lecun-normal Dense
+    kernels (in, out), xavier-uniform packed MHA in-projections in
+    torch's (3e, e) layout, small biases, LayerNorm scale in
+    [0.8, 1.2]."""
+    rng = np.random.RandomState(seed)
+    h = hidden_dim
+
+    def dense(din, dout):
+        return {'kernel': (rng.randn(din, dout) / np.sqrt(din)
+                           ).astype(np.float32),
+                'bias': (0.02 * rng.randn(dout)).astype(np.float32)}
+
+    def norm(d):
+        return {'scale': rng.uniform(0.8, 1.2, d).astype(np.float32),
+                'bias': (0.02 * rng.randn(d)).astype(np.float32)}
+
+    def proj(din):
+        return {'linear': dense(din, h), 'norm': norm(h)}
+
+    lim = np.sqrt(6.0 / (h + 3 * h))
+    params = {}
+    for mod, d in (('speech', speech_dim), ('text', text_dim),
+                   ('image', image_dim)):
+        params[f'{mod}_proj'] = proj(d)
+    for mod in ('speech', 'text', 'image'):
+        params[f'cross_attn_{mod}'] = {
+            'attention': {
+                'in_proj_weight': rng.uniform(-lim, lim, (3 * h, h)
+                                              ).astype(np.float32),
+                'in_proj_bias': (0.02 * rng.randn(3 * h)).astype(np.float32),
+                'out_proj': dense(h, h)},
+            'norm': norm(h)}
+    params['attention_fusion'] = {
+        'proj_0': proj(h), 'proj_1': proj(h), 'proj_2': proj(h),
+        'attn_0': dense(3 * h, h), 'attn_1': dense(h, 3)}
+    params['decision_0'] = dense(3 * num_classes, 64)
+    params['decision_1'] = dense(64, 3)
+    params['classifier_0'] = dense(h + num_classes, h)
+    params['classifier_norm'] = norm(h)
+    params['classifier_1'] = dense(h, h // 2)
+    params['classifier_2'] = dense(h // 2, num_classes)
+    return {'params': params}
 
 
 def layer1_quant_params(seed: int = 0) -> Dict:

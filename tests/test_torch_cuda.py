@@ -14,26 +14,33 @@ one-bin steps where the f64 prefix is within the worst-case f32 sum
 rounding (1025 * 2**-24 of the total) of the threshold; K4 probs
 2e-6 and penult 2e-5 (the JAX kernel test's bounds); K6 and K7
 bit-exact (a max moves values; K7's integer sums are exact and it rounds
-where the plain QuantConv path rounds). The image engines on the card
-and on the CPU agree in fp32 within 1e-4; in bf16 int8-static (the CPU
-engine takes the card engine's scales) decisions are equal wherever the
-top-2 margin exceeds the probability band of 2e-2 (bf16 stem and head
-GEMMs accumulate in other orders on the two devices).
+where the plain QuantConv path rounds); K5 in both precisions mag atol
+5e-5 and P relative 5e-3 over P + 1e-6 on 0.1-scale noise frames (the
+JAX package's K5 contract, tests/test_pallas.py:31-40; kernel and plain
+version sum the same exact products in other orders). The image and
+tri-modal engines on the card and on the CPU agree in fp32 within 1e-4;
+in bf16 int8-static (the CPU engine takes the card engine's scales)
+decisions are equal wherever the top-2 margin exceeds the probability
+band of 2e-2 (bf16 GEMMs accumulate in other orders on the two devices).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mec_tpu_torch.config import Config
 from mec_tpu_torch.convert.from_jax import image_state_from_jax
 from mec_tpu_torch.models.resnet import Bottleneck
 from mec_tpu_torch.ops import audio_features as af
-from mec_tpu_torch.ops import (pool_kernel, resnet_kernel, rolloff_kernel,
-                               speech_kernels, tuning_kernel)
+from mec_tpu_torch.ops import (dft_kernel, pool_kernel, resnet_kernel,
+                               rolloff_kernel, speech_kernels, tuning_kernel)
 from mec_tpu_torch.ops.quant import extract_static_scales
 from mec_tpu_torch.serving.engine import EmotionEngine
-from mec_tpu_torch.serving.synthetic_artifacts import (image_variables,
+from mec_tpu_torch.serving.synthetic_artifacts import (bert_variables,
+                                                       fusion_variables,
+                                                       image_variables,
                                                        layer1_quant_params,
+                                                       make_vocab,
                                                        speech_variables)
 
 N = 66150
@@ -218,3 +225,74 @@ def test_image_engine_on_cuda_matches_cpu(dev):
             for g, r in zip(got, ref):
                 np.testing.assert_allclose(g['_features'], r['_features'],
                                            atol=1e-4)
+
+
+def _noise_frames(shape_bt, dev, seed=0):
+    """Hann-windowed center frames of 0.1-scale noise: (B, T, 2048)."""
+    B, T = shape_bt
+    y = np.random.RandomState(seed).randn(B, N).astype(np.float32) * 0.1
+    frames = af.frame_signal(torch.from_numpy(y).to(dev), edge=False)
+    return (frames * af._consts(dev)['hann'])[:, :T].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('precision', ['highest', 'bf16'])
+@pytest.mark.parametrize('bt', [(1, 130), (32, 130), (3, 7)])
+def test_dft_spectrograms_kernel(dev, bt, precision):
+    frames = _noise_frames(bt, dev, seed=bt[0])
+    before = dft_kernel.dft_spectrograms.launches
+    km, kp = dft_kernel.dft_spectrograms(frames, precision)
+    pm, pp = dft_kernel.dft_spectrograms_plain(frames, precision)
+    torch.cuda.synchronize()
+    assert dft_kernel.dft_spectrograms.launches == before + 1
+    assert km.shape == kp.shape == bt + (1025,)
+    assert (km - pm).abs().max().item() <= 5e-5
+    assert ((kp - pp).abs() / (pp + 1e-6)).max().item() < 5e-3
+
+
+@pytest.mark.cuda
+def test_trimodal_engine_on_cuda_matches_cpu(dev, monkeypatch):
+    """A narrow tri-modal engine (2-layer BERT, 64 px ResNet50) on the
+    card and on the CPU: fp32 within 1e-4; bf16 int8-static at
+    MEC_DFT_PRECISION=highest (K5 on the path) within the 2e-2 band."""
+    rng = np.random.RandomState(5)
+    waves = _waves(3, seed=5)
+    imgs = rng.randint(0, 256, (3, 64, 64, 3), np.uint8)
+    texts = ['i am so happy today', 'this is sad', 'wow']
+    kw = dict(vocab_size=200, hidden_size=64, num_layers=2,
+              intermediate_size=128, max_position=128)
+    tree, meta = image_variables(seed=3, image_size=64)
+    trees = dict(image_variables=tree, bert_variables=bert_variables(1, **kw),
+                 bert_kwargs=dict(kw, num_heads=2), bert_vocab=make_vocab(),
+                 fusion_variables=fusion_variables(2, text_dim=64),
+                 fusion_config={'text_dim': 64})
+    speech = speech_variables(seed=1)
+    monkeypatch.setattr(Config, 'DFT_PRECISION', 'highest')
+    for dtype, band in (('float32', 1e-4), ('bfloat16', 2e-2)):
+        cuda_engine = EmotionEngine(speech, None, image_meta=meta,
+                                    compute_dtype=dtype, device='cuda',
+                                    **trees)
+        img_meta, bert_meta = dict(meta), {}
+        if dtype == 'bfloat16':
+            assert cuda_engine._dft_precision == 'highest'
+            img_meta['int8_scales'] = {cuda_engine._image_scales_key():
+                                       extract_static_scales(
+                                           cuda_engine.image['variables'])}
+            bert_meta['int8_scales'] = {cuda_engine._bert_scales_key():
+                                        extract_static_scales(
+                                            cuda_engine.bert['variables'])}
+        cpu_engine = EmotionEngine(speech, None, image_meta=img_meta,
+                                   compute_dtype=dtype, device='cpu',
+                                   **dict(trees, bert_meta=bert_meta))
+        before = dft_kernel.dft_spectrograms.launches
+        got = cuda_engine._run_trimodal(waves, texts, imgs)
+        launched = dft_kernel.dft_spectrograms.launches - before
+        assert launched == (1 if dtype == 'bfloat16' else 0)
+        ref = cpu_engine._run_trimodal(waves, texts, imgs)
+        assert got.shape == (3, 34) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, atol=band)
+        for g, r in zip(got, ref):
+            for lo in (0, 7, 14, 21):
+                p = np.sort(r[lo:lo + 7])
+                if p[-1] - p[-2] > band:
+                    assert np.argmax(g[lo:lo + 7]) == np.argmax(r[lo:lo + 7])

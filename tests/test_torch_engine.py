@@ -5,9 +5,9 @@ from a numpy seed, and one scaler. The JAX EmotionEngine reads them from
 a models/ directory holding only speech_model.mecp and
 speech_scaler.npz, in fp32 parity mode on the CPU; the port's engine
 takes the numpy tree directly and runs on device='cpu' (the kernels'
-plain versions). The JAX side is fed decode_pcm12(encode_pcm12_np(w)),
-the samples the port's 12-bit wire delivers, so both see the same
-input. Decisions must be equal, probabilities and the 64-dim
+plain versions). Both are fed the same raw waveforms: in fp32 parity
+mode both ship float32 samples (the 12-bit and PCM16 wires are bf16
+serving formats). Decisions must be equal, probabilities and the 64-dim
 penultimate within 1e-4.
 
 Also here: the port's engine drops into the unchanged web app, the
@@ -90,9 +90,11 @@ def _wav_path(tmp_path, name, y):
 # ----------------------------------------------------------------------
 
 def test_engine_matches_jax_engine(setup):
+    """Same raw waveforms into both fp32 engines: the port's wire must
+    not quantize what the JAX parity engine ships as float32."""
     waves = setup['waves']
-    ref = setup['jax'].predict_speech_waves(_wire_samples(waves),
-                                            want_features=True)
+    assert setup['port']._wire_waves(waves, 8)[0].dtype == np.float32
+    ref = setup['jax'].predict_speech_waves(waves, want_features=True)
     got = setup['port'].predict_speech_waves(waves, want_features=True)
     assert len(got) == len(ref) == 5
     for g, r in zip(got, ref):
@@ -129,14 +131,23 @@ def test_engine_buckets_and_paths(setup, tmp_path):
 
 
 def test_engine_pcm16_wire_when_compression_off(setup, monkeypatch):
-    monkeypatch.setattr(Config, 'WIRE_COMPRESS', False)
+    """The wire follows the compute mode (JAX engine.py:971-998): bf16
+    ships 12-bit PCM, or PCM16 with MEC_WIRE_COMPRESS=0; fp32 ships
+    float32 either way."""
+    port16 = EmotionEngine(setup['tree'], setup['scaler'],
+                           compute_dtype='bfloat16', device='cpu')
     waves = setup['waves'][:2]
-    wire_arrays = setup['port']._wire_waves(waves, 8)
+    wire_arrays = port16._wire_waves(waves, 8)
+    assert [a.dtype for a in wire_arrays] == [np.uint8, np.float32]
+    ref = port16.predict_speech_waves(waves)
+    monkeypatch.setattr(Config, 'WIRE_COMPRESS', False)
+    wire_arrays = port16._wire_waves(waves, 8)
     assert len(wire_arrays) == 1 and wire_arrays[0].dtype == np.int16
-    got = setup['port'].predict_speech_waves(waves)
-    monkeypatch.setattr(Config, 'WIRE_COMPRESS', True)
-    ref = setup['port'].predict_speech_waves(waves)
+    got = port16.predict_speech_waves(waves)
     assert [g['emotion'] for g in got] == [r['emotion'] for r in ref]
+    fp32 = setup['port']._wire_waves(waves, 8)
+    assert len(fp32) == 1 and fp32[0].dtype == np.float32
+    np.testing.assert_array_equal(fp32[0][:2], waves)
 
 
 def test_heuristic_fallback_matches_jax(tmp_path):
@@ -167,15 +178,23 @@ def test_engine_device_is_explicit():
         EmotionEngine(device='meta')
 
 
+def _rf_mode_engine():
+    old = Config.FUSION_MODE
+    Config.FUSION_MODE = 'rf'
+    try:
+        return EmotionEngine(device='cpu')
+    finally:
+        Config.FUSION_MODE = old
+
+
 @pytest.mark.parametrize('call,item', [
-    (lambda: EmotionEngine(device='cpu').predict_texts(['hi']), '6'),
+    (lambda: EmotionEngine(bert_variables={'params': {}},
+                           bert_kwargs={'num_experts': 4},
+                           device='cpu'), '12'),
     (lambda: EmotionEngine(device='cpu').predict_texts_lstm(['hi']), '10'),
     (lambda: EmotionEngine(image_variables={'params': {'conv_stem': {}}},
                            device='cpu'), '5'),
-    (lambda: EmotionEngine(device='cpu').predecode_multimodal({}), '7'),
-    (lambda: EmotionEngine(device='cpu').predict_multimodal(
-        'a.wav', 'hi', 'x.png'), '7'),
-    (lambda: EmotionEngine(device='cpu').predict_multimodal_batch([{}]), '7'),
+    (_rf_mode_engine, '7'),
 ])
 def test_unported_modalities_name_their_roadmap_item(call, item):
     with pytest.raises(NotImplementedError,
@@ -250,7 +269,8 @@ def test_port_engine_serves_unchanged_webapp(setup, tmp_path):
     'AUDIO_SAMPLES', 'N_FFT', 'HOP_LENGTH', 'N_MELS', 'BATCH_BUCKETS',
     'BATCH_TIMEOUT_S', 'BATCH_MAX_LINGER_S', 'BATCH_MAX_PENDING',
     'BATCH_PIPELINE_DEPTH', 'WIRE_COMPRESS', 'IMAGE_SIZE', 'COMPUTE_DTYPE',
-    'FOLD_BN', 'IMAGE_INT8', 'INT8_STATIC'])
+    'FOLD_BN', 'IMAGE_INT8', 'INT8_STATIC', 'DFT_PRECISION',
+    'MAX_TEXT_LENGTH', 'SEQ_BUCKETS', 'BERT_INT8', 'FUSION_MODE'])
 def test_config_copy_matches_original(name):
     assert getattr(Config, name) == getattr(JaxConfig, name)
 
