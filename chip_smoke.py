@@ -49,14 +49,27 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               the same engine on device='cpu' (given the card's scales)
               and an fp32 parity tri-modal engine against device='cpu'
               within 1e-4
-  7. times    CUDA-event medians of each kernel and its plain version at
-              B=32 (K5 in both precisions), of the speech and image
-              device steps at B=1, 8, 32, of the tri-modal device step at
-              B=1, 8, 32 (default and highest), of the text device step
-              at B=1, 32 and seq 16, 32, 128, the predict_multimodal host
-              wall at B=1, and one profiled window of the tri-modal step
-              (device busy share, device ops per step)
-  8. report   a JSON line of the kernels, then the contract line last:
+  7. times    CUDA-event medians of each kernel, its plain version and,
+              where one PyTorch call computes the same function, that
+              call (K5: one matmul against both bases; K6: F.max_pool2d;
+              timed here, used nowhere in the port) at B=32 in turns
+              (K5 in both precisions); each kernel's bound from the
+              shapes just timed (bytes over the memory rate or
+              operations over the peak rate of their unit, H100 SXM
+              data sheet); the speech and image device steps at B=1, 8,
+              32, the tri-modal device step at B=1, 8, 32 (default and
+              highest), the text device step at B=1, 32 and seq 16, 32,
+              128, the predict_multimodal host wall at B=1, and one
+              profiled window of the tri-modal step (device busy share,
+              device ops per step)
+  8. report   the card's name and power limit; a JSON line of the seven
+              kernels (name, route, source, replaces, launches and
+              launches_per_dispatch on the tri-modal path, max_abs_err,
+              ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
+              bound_peak 'memory', 'fp32', 'bf16_tc' or 'int8_tc',
+              library_ms or null; K5's row is the 'highest' precision
+              and carries the 'bf16' one under bf16_* keys); then the
+              contract line last:
               {"ok": true, "device": {"platform": "gpu", ...}}
 """
 
@@ -249,6 +262,29 @@ def profile_step(fn, steps=10):
     wall = statistics.median(walls)
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     return wall, busy, busy / wall, len(kern) / steps, top
+
+
+# NVIDIA's data-sheet peaks of the H100 SXM (dense, at the 700 W limit):
+# device memory bytes/s, fp32 FLOP/s outside the tensor cores, bf16
+# tensor-core FLOP/s, int8 tensor-core OP/s
+PEAKS = {'memory': 3.35e12, 'fp32': 67e12, 'bf16_tc': 989e12,
+         'int8_tc': 1979e12}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, ops, unit):
+    """The least time (ms) the card could take: the larger of the bytes
+    moved (each input read once, each output written once) over the
+    memory rate and the operations over the peak rate of their unit.
+    Returns (ms, 'bytes' or 'operations', the peak that binds)."""
+    t_bytes = moved / PEAKS['memory'] * 1e3
+    t_ops = ops / PEAKS[unit] * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, 'bytes', 'memory'
+    return t_ops, 'operations', unit
 
 
 def main():
@@ -655,6 +691,7 @@ def main():
     tri = {}
     bert_meta = None
     tri_launches = {name: 0 for name in wrappers}
+    per_dispatch = {}
     for prec in ('high', 'highest'):
         t0 = time.perf_counter()
         eng = tri_engine('cuda', 'bfloat16', prec, bert_meta)
@@ -696,6 +733,8 @@ def main():
             check(n == want, f'{name} launched {n} times in {dispatches} '
                   f'dispatches of the {prec} tri-modal engine (want {want})')
             tri_launches[name] += n
+            if prec == 'highest':
+                per_dispatch[name] = n / dispatches
         cpu_eng = tri_engine('cpu', 'bfloat16', prec, bert_meta)
         check(cpu_eng._bert_scales_cached and cpu_eng._image_scales_cached,
               'cpu tri-modal engine did not take the card\'s scales')
@@ -793,16 +832,87 @@ def main():
             lambda: dft_kernel.dft_spectrograms(frames32, 'bf16'),
             lambda: dft_kernel.dft_spectrograms_plain(frames32, 'bf16')),
     }
+    # one PyTorch call for the same function, where there is one; timed
+    # here as a yardstick and used nowhere in the port. K5: one matmul of
+    # the frames against both bases side by side (fp32 with TF32 off; for
+    # 'bf16' on bf16 tensors, whose result is rounded to bf16: a floor
+    # for a library, not the same function). K6: F.max_pool2d, which is
+    # also the plain version without its layout copy
+    flat32 = frames32.reshape(-1, frames32.shape[-1])
+    both = {prec: torch.cat(dft_kernel._bases(dev, prec), 1)
+            for prec in dft_kernel.PRECISIONS}
+    flat16, both16 = flat32.to(torch.bfloat16), both['bf16'].to(torch.bfloat16)
+    stem_nchw = stem32.permute(0, 3, 1, 2)
+    library = {
+        'dft_spectrograms': lambda: torch.matmul(flat32, both['highest']),
+        'dft_spectrograms[bf16]': lambda: torch.matmul(flat16, both16),
+        'max_pool_3x3s2': lambda: F.max_pool2d(stem_nchw, 3, stride=2,
+                                               padding=1),
+    }
     times = {}
     for name, (kern, plain) in timed.items():
-        # alternate plain, kernel, kernel, plain so drift hits both
+        # in turns (plain, library, kernel, kernel, library, plain) so
+        # drift hits all alike
+        lib = library.get(name)
+        order = (plain, lib, kern, kern, lib, plain)
         with torch.inference_mode():
-            p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
+            p1, l1, k1, k2, l2, p2 = (cuda_ms(f) if f else None
+                                      for f in order)
         times[name] = (statistics.median([k1, k2]),
-                       statistics.median([p1, p2]))
+                       statistics.median([p1, p2]),
+                       statistics.median([l1, l2]) if lib else None)
+        lib_ms = f'{times[name][2]:.4f} ms' if lib else 'none'
         print(f'time {name:13s} B=32: kernel {times[name][0]:.4f} ms, plain '
-              f'{times[name][1]:.4f} ms (median of {REPS} CUDA-event runs; '
-              f'{card})')
+              f'{times[name][1]:.4f} ms, library call {lib_ms} (median of '
+              f'{REPS} CUDA-event runs; {card})')
+
+    # the bounds, from the shapes just timed (data-sheet peaks, PEAKS)
+    Bt, T, _ = P.shape
+    mel = speech_kernels._mel_tables(P.device)[0]
+    convs = resnet_kernel._convs(blocks)
+    M7 = pooled32.shape[0] * pooled32.shape[1] * pooled32.shape[2]
+    M5 = flat32.shape[0]
+    dims = fwd.dims
+    k5_ops = 4 * M5 * dft_kernel.N_FFT * dft_kernel.N_BINS
+    k5_out = 2 * M5 * dft_kernel.N_BINS * 4
+    bounds = {
+        # the mel filters' nonzero taps, one log per mel and frame, and
+        # the DCT of the time mean
+        'mfcc_mean': bound(
+            nbytes(P) + Bt * 40 * 4,
+            2 * int((mel != 0).sum()) * Bt * T + Bt * T * mel.shape[0]
+            + 2 * mel.shape[0] * 40 * Bt, 'fp32'),
+        # a 32-pass bisection and 101 histogram edges, one compare each
+        'tuning_select': bound(
+            nbytes(mags, residual, pitches) + Bt * 5,
+            (32 + 101) * mags.numel(), 'fp32'),
+        # the row total and the prefix sum
+        'rolloff_bins': bound(nbytes(rows) + rows.shape[0] * 4,
+                              2 * rows.numel(), 'fp32'),
+        'speech_dnn': bound(
+            nbytes(x, fwd.params) + x.shape[0] * 128 * 4,
+            2 * x.shape[0] * sum(a * b for a, b in zip(dims, dims[1:])),
+            'fp32'),
+        'dft_spectrograms': bound(
+            nbytes(flat32, *dft_kernel.kernel_tables(flat32.device, 'highest'))
+            + k5_out,
+            k5_ops, 'fp32'),
+        'dft_spectrograms[bf16]': bound(
+            nbytes(flat32, *dft_kernel.kernel_tables(flat32.device, 'bf16'))
+            + k5_out,
+            k5_ops, 'bf16_tc'),
+        'max_pool_3x3s2': bound(nbytes(stem32, pooled32), 8 * pooled32.numel(),
+                                'fp32'),
+        'layer1': bound(
+            nbytes(pooled32, *(t for c in convs for t in (
+                c.kernel_q, c.kernel_scale, c.bias, c.act_scale)))
+            + M7 * 256 * 2,
+            2 * M7 * sum(c.kernel_q.numel() for c in convs), 'int8_tc'),
+    }
+    for name, (ms, by, peak) in bounds.items():
+        print(f'bound {name:13s} B=32: {ms:.5f} ms, bound by {by} ({peak} '
+              f'peak of the H100 SXM data sheet); kernel at '
+              f'{ms / times[name][0]:.3f} of it')
     for B in (1, 8, 32):
         wire_dev = engine._to_device(engine._wire_waves(clips[:B], B))
         step = cuda_ms(lambda: engine._speech_forward(wire_dev))
@@ -887,13 +997,30 @@ def main():
                'dft_spectrograms': ('mec_tpu_torch/csrc/dft_power.cu',
                                     'mec_tpu/ops/pallas_kernels.py:99')}
     # launches: the tri-modal path's runs (both engines), this slice's
-    # main path; K5's times are the 'highest' precision's
+    # main path; launches_per_dispatch: in the 'highest' engine, where all
+    # seven are on the path. K5's times are the 'highest' precision's; its
+    # 'bf16' ones follow under bf16_* keys. bound_by says which side
+    # binds, bound_peak which data-sheet peak. The bf16 library call
+    # rounds its result to bf16: a floor, not the same function
+    def entry(name):
+        ms, plain_ms, lib_ms = times[name]
+        b_ms, b_by, b_peak = bounds[name]
+        e = {'name': name, 'route': 'cuda', 'source': sources[name][0],
+             'replaces': sources[name][1], 'launches': tri_launches[name],
+             'launches_per_dispatch': per_dispatch[name],
+             'max_abs_err': errs[name], 'ms': ms, 'plain_ms': plain_ms,
+             'bound_ms': b_ms, 'bound_by': b_by, 'bound_peak': b_peak,
+             'library_ms': lib_ms}
+        if name == 'dft_spectrograms':
+            ms, plain_ms, lib_ms = times[name + '[bf16]']
+            b_ms, b_by, b_peak = bounds[name + '[bf16]']
+            e.update(bf16_ms=ms, bf16_plain_ms=plain_ms, bf16_bound_ms=b_ms,
+                     bf16_bound_by=b_by, bf16_bound_peak=b_peak,
+                     bf16_library_ms=lib_ms)
+        return e
+
     print(card)
-    print(json.dumps({'kernels': [
-        {'name': name, 'route': 'cuda', 'source': sources[name][0],
-         'replaces': sources[name][1], 'launches': tri_launches[name],
-         'max_abs_err': errs[name], 'ms': times[name][0],
-         'plain_ms': times[name][1]} for name in wrappers]}))
+    print(json.dumps({'kernels': [entry(name) for name in wrappers]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

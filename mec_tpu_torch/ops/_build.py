@@ -36,6 +36,10 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+# streaming multiprocessors of the H100 SXM: the wrappers that pick a tile
+# by the problem size want a block for each
+SM_COUNT = 132
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # what the last build in this process did: seconds (0.0 when the hashed

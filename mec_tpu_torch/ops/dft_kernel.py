@@ -16,6 +16,13 @@ The wrapper runs the plain version (two fp32 torch.matmul on the
 rounded operands) for a CPU tensor and launches the CUDA kernel
 (csrc/dft_power.cu) for a CUDA tensor, or raises;
 `dft_spectrograms.launches` counts kernel launches.
+
+The kernel cuts the 1024 bins below the Nyquist bin into tiles and
+handles the Nyquist bin beside them; `tile_grid` picks the tile from the
+row count, and `kernel_tables` lays the bases out as the kernel reads
+them: fp32 (2048, 1024) plus the Nyquist columns for 'highest' (fp32
+FMAs), bf16 K-major (1032, 2048) for 'bf16' (tensor cores: mma.sync
+m16n8k16, which needs sm_80 or later; the build targets sm_90a).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ PRECISIONS = ('highest', 'bf16')
 def _lib():
     lib = _build.library()
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.mec_dft_power.argtypes = [P, P, P, I, I, I, I, P, P, P]
+    lib.mec_dft_power.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P]
     lib.mec_dft_power.restype = I
     return lib
 
@@ -59,6 +66,53 @@ def _bases(device: torch.device, precision: str
             t = t.to(torch.bfloat16).to(torch.float32)
         out.append(t.to(device).contiguous())
     return tuple(out)
+
+
+N_TILED = N_BINS - 1              # 1024 bins in tiles; bin 1024 beside them
+N_PAD = N_BINS + 7                # bf16 table rows: a multiple of 8
+TILES = ((128, 64), (32, 32))     # (frames, bins) a block, largest first
+
+
+def tile_grid(m: int, n: int = N_BINS) -> Tuple[int, int, int, int]:
+    """(bm, bn, grid_x, grid_y) for m rows and n bins: the largest tile
+    of TILES that still gives every SM a block, else the smallest. The
+    grid covers the n - 1 bins below the Nyquist bin; `nyquist_rows`
+    deals out the last one."""
+    for bm, bn in TILES:
+        gx, gy = (n - 1) // bn, -(-m // bm)
+        if gx * gy >= _build.SM_COUNT:
+            break
+    return bm, bn, gx, gy
+
+
+def nyquist_rows(m: int, bm: int, gx: int, bx: int, by: int) -> range:
+    """The rows whose Nyquist bin block (bx, by) computes: the row
+    tile's bm rows dealt out to its gx blocks (csrc/dft_power.cu::
+    nyquist_bin)."""
+    per = -(-bm // gx)
+    lo = by * bm + bx * per
+    return range(min(lo, m), min(by * bm + min((bx + 1) * per, bm), m))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(device: torch.device, precision: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bases of `_bases` as the kernel reads them: (cos, sin, nyq).
+
+    'highest': cos, sin (N_FFT, N_TILED) fp32 (16-byte aligned rows) and
+    nyq (2, N_FFT) fp32, the Nyquist bin's cos and sin columns.
+    'bf16': cos, sin (N_PAD, N_FFT) bf16, K-major (row n is bin n), rows
+    past N_BINS zero; nyq is an empty tensor (row N_TILED serves)."""
+    cos, sin = _bases(device, precision)
+    if precision == 'bf16':
+        pad = torch.zeros((N_PAD - N_BINS, N_FFT), dtype=torch.bfloat16,
+                          device=device)
+        cosT, sinT = (torch.cat([t.t().to(torch.bfloat16), pad]).contiguous()
+                      for t in (cos, sin))
+        return cosT, sinT, torch.empty(0, device=device)
+    nyq = torch.stack([cos[:, N_TILED], sin[:, N_TILED]]).contiguous()
+    return (cos[:, :N_TILED].contiguous(), sin[:, :N_TILED].contiguous(),
+            nyq)
 
 
 def _check(frames: torch.Tensor, precision: str) -> None:
@@ -95,16 +149,17 @@ def dft_spectrograms(frames: torch.Tensor, precision: str = 'highest'
     _build.check_cuda(frames, 'dft_spectrograms', torch.float32)
     if frames.data_ptr() % 16:
         raise ValueError('dft_spectrograms: the frames must start on a '
-                         '16-byte boundary (the kernel reads float4)')
+                         '16-byte boundary (the kernel copies 16 bytes)')
     B, T, _ = frames.shape
-    cos, sin = _bases(frames.device, precision)
+    cos, sin, nyq = kernel_tables(frames.device, precision)
+    bm, bn, _gx, _gy = tile_grid(B * T)
     P = torch.empty((B, T, N_BINS), dtype=torch.float32,
                     device=frames.device)
     mag = torch.empty_like(P)
     err = _lib().mec_dft_power(
-        frames.data_ptr(), cos.data_ptr(), sin.data_ptr(), B * T, N_FFT,
-        N_BINS, int(precision == 'bf16'), P.data_ptr(), mag.data_ptr(),
-        _build.stream(frames.device))
+        frames.data_ptr(), cos.data_ptr(), sin.data_ptr(), nyq.data_ptr(),
+        B * T, N_FFT, N_BINS, int(precision == 'bf16'), bm, bn,
+        P.data_ptr(), mag.data_ptr(), _build.stream(frames.device))
     _build.check_error(err, 'dft_spectrograms')
     _build.count_launch(dft_spectrograms)
     return mag, P

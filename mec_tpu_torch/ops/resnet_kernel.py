@@ -6,16 +6,28 @@ takes the pooled stem output (B, H, W, 64) bf16 and the model's three
 layer1 Bottleneck modules (models/resnet.py, static-mode QuantConvs). For
 a CPU tensor it runs the plain version, the blocks themselves (im2col +
 torch._int_mm per conv); for a CUDA tensor it launches the kernels of
-csrc/layer1_int8.cu (one quantize and ten conv launches behind one C
-call, counted once in `layer1.launches`) or raises. The two are
-bit-exact: the integer sums are exact and both round at the same points
-(the source's header lists them).
+csrc/layer1_int8.cu (seven launches behind one C call, counted once in
+`layer1.launches`) or raises. The two are bit-exact: the integer sums
+are exact and both round at the same points (the source's header lists
+them).
+
+The convs run on the int8 tensor cores (mma.sync m16n8k32, sm_80 or
+later; the build targets sm_90a). The instruction's `row.col` form is
+how the operands already lie (pixels with channels fastest, weights
+(Cout, kh*kw*Cin)), so no weight is repacked: the kernel reads the
+QuantConv buffers in place, and the ten activation scales through their
+own pointers, so a model recalibrated in place needs no new wrapper
+state. The checked conv list and the four pointer tables are kept per
+model (keyed on its first block) for as long as the blocks still hold
+the very tensors that were checked. `pixel_tile` picks the pixels a
+block takes from the pixel count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import List, Sequence
 
 import torch
@@ -38,10 +50,23 @@ CONV_ORDER = ((0, 'conv1'), (0, 'conv2'), (0, 'conv3'),
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.library()
-    lib.mec_layer1_int8.argtypes = [_P, _I, _I, _I, _PTRS, _PTRS, _PTRS, _P,
-                                    _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.mec_layer1_int8.argtypes = [_P, _I, _I, _I, _PTRS, _PTRS, _PTRS,
+                                    _PTRS, _P, _P, _I, _P]
     lib.mec_layer1_int8.restype = _I
     return lib
+
+
+PIXEL_TILES = (128, 16)           # pixels a block, largest first
+SCRATCH_BYTES = 64 + 64           # int8 maps between launches, per pixel
+
+
+def pixel_tile(m: int) -> int:
+    """The pixels a block takes for a map of m pixels: the largest of
+    PIXEL_TILES that still gives every SM a block, else the smallest."""
+    for tile in PIXEL_TILES:
+        if -(-m // tile) >= _build.SM_COUNT:
+            break
+    return tile
 
 
 def layer1_plain(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
@@ -68,6 +93,38 @@ def _convs(blocks: Sequence[nn.Module]) -> List[nn.Module]:
     return convs
 
 
+_BUFFERS = ('kernel_q', 'kernel_scale', 'bias', 'act_scale')
+# first block -> (the three blocks, device, [(conv._buffers, name, tensor)],
+# the four pointer tables)
+_tables = weakref.WeakKeyDictionary()
+
+
+def _pointer_tables(blocks: Sequence[nn.Module], device: torch.device):
+    """Four ctypes tables of ten device pointers (weights, kernel scales,
+    biases, activation scales, in CONV_ORDER), checked once per model."""
+    hit = _tables.get(blocks[0]) if len(blocks) == 3 else None
+    if hit is not None:
+        owners, dev, held, tables = hit
+        if (dev == device and all(a is b for a, b in zip(owners, blocks))
+                and all(bufs.get(name) is t for bufs, name, t in held)):
+            return tables
+    convs = _convs(blocks)
+    held = []
+    for c in convs:
+        for name in _BUFFERS:
+            t = getattr(c, name)
+            # the weights are copied 16 bytes at a time
+            if (t.device != device or not t.is_contiguous()
+                    or (name == 'kernel_q' and t.data_ptr() % 16)):
+                raise ValueError(f'layer1: {name} not contiguous (and, the '
+                                 f'weights, 16-byte aligned) on {device}')
+            held.append((c._buffers, name, t))
+    tables = tuple(_PTRS(*(getattr(c, name).data_ptr() for c in convs))
+                   for name in _BUFFERS)
+    _tables[blocks[0]] = (tuple(blocks), device, held, tables)
+    return tables
+
+
 def layer1(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
     """(B, H, W, 64) bf16 NHWC -> (B, H, W, 256) bf16."""
     if x.dim() != 4 or x.shape[-1] != 64:
@@ -78,29 +135,15 @@ def layer1(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
     _build.check_cuda(x, 'layer1', torch.bfloat16)
     if x.data_ptr() % 16:
         raise ValueError('layer1: the kernel takes 16-byte aligned rows')
-    convs = _convs(blocks)
-    for c in convs:
-        for name in ('kernel_q', 'kernel_scale', 'bias', 'act_scale'):
-            t = getattr(c, name)
-            if t.device != x.device or not t.is_contiguous():
-                raise ValueError(f'layer1: {name} not contiguous on '
-                                 f'{x.device}')
     B, H, W, _ = x.shape
     M = B * H * W
     dev = x.device
-    scales = torch.stack([c.act_scale for c in convs])
-    i8 = dict(dtype=torch.int8, device=dev)
-    qa, qd, h1q, h2q = (torch.empty((M, 64), **i8) for _ in range(4))
-    resq = torch.empty((M, 256), **i8)
-    ident = torch.empty((M, 256), dtype=torch.bfloat16, device=dev)
+    wq, kscale, bias, ascale = _pointer_tables(blocks, dev)
+    scratch = torch.empty(M * SCRATCH_BYTES, dtype=torch.int8, device=dev)
     out = torch.empty((B, H, W, 256), dtype=torch.bfloat16, device=dev)
     err = _lib().mec_layer1_int8(
-        x.data_ptr(), B, H, W,
-        _PTRS(*(c.kernel_q.data_ptr() for c in convs)),
-        _PTRS(*(c.kernel_scale.data_ptr() for c in convs)),
-        _PTRS(*(c.bias.data_ptr() for c in convs)),
-        scales.data_ptr(), qa.data_ptr(), qd.data_ptr(), h1q.data_ptr(),
-        h2q.data_ptr(), resq.data_ptr(), ident.data_ptr(), out.data_ptr(),
+        x.data_ptr(), B, H, W, wq, kscale, bias, ascale,
+        scratch.data_ptr(), out.data_ptr(), pixel_tile(M),
         _build.stream(dev))
     _build.check_error(err, 'layer1')
     _build.count_launch(layer1)

@@ -182,7 +182,8 @@ def test_max_pool_kernel(dev, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape', [(1, 56, 56, 64), (32, 56, 56, 64),
-                                   (2, 13, 9, 64)])
+                                   (2, 13, 9, 64), (2, 56, 56, 64),
+                                   (3, 57, 55, 64)])
 def test_layer1_kernel(dev, shape):
     blocks = _layer1_blocks(dev)
     x = torch.from_numpy(np.abs(np.random.RandomState(1).randn(*shape))
@@ -195,6 +196,23 @@ def test_layer1_kernel(dev, shape):
     assert resnet_kernel.layer1.launches == before + 1
     assert k.shape == p.shape == shape[:3] + (256,)
     assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_layer1_kernel_reads_scales_recalibrated_in_place(dev):
+    """The kernel reads the activation scales through their own pointers:
+    new values copied into the same buffers are used by the next call."""
+    blocks = _layer1_blocks(dev)
+    x = torch.from_numpy(np.abs(np.random.RandomState(2).randn(2, 20, 20, 64))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        first = resnet_kernel.layer1(x, blocks)
+        for i, c in enumerate(resnet_kernel._convs(blocks)):
+            c.act_scale.mul_(1.0 + 0.1 * (i % 3))
+        k = resnet_kernel.layer1(x, blocks)
+        p = resnet_kernel.layer1_plain(x, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and not torch.equal(k, first)
 
 
 @pytest.mark.cuda
@@ -228,16 +246,20 @@ def test_image_engine_on_cuda_matches_cpu(dev):
 
 
 def _noise_frames(shape_bt, dev, seed=0):
-    """Hann-windowed center frames of 0.1-scale noise: (B, T, 2048)."""
+    """Hann-windowed center frames of 0.1-scale noise: (B, T, 2048),
+    cut from as many 130-frame clips as B * T frames need."""
     B, T = shape_bt
-    y = np.random.RandomState(seed).randn(B, N).astype(np.float32) * 0.1
+    clips = -(-B * T // 130)
+    y = np.random.RandomState(seed).randn(clips, N).astype(np.float32) * 0.1
     frames = af.frame_signal(torch.from_numpy(y).to(dev), edge=False)
-    return (frames * af._consts(dev)['hann'])[:, :T].contiguous()
+    frames = (frames * af._consts(dev)['hann']).reshape(-1, 2048)
+    return frames[:B * T].reshape(B, T, 2048).contiguous()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('precision', ['highest', 'bf16'])
-@pytest.mark.parametrize('bt', [(1, 130), (32, 130), (3, 7)])
+@pytest.mark.parametrize('bt', [(1, 130), (32, 130), (3, 7), (1, 1),
+                                (1, 131)])
 def test_dft_spectrograms_kernel(dev, bt, precision):
     frames = _noise_frames(bt, dev, seed=bt[0])
     before = dft_kernel.dft_spectrograms.launches
@@ -248,6 +270,10 @@ def test_dft_spectrograms_kernel(dev, bt, precision):
     assert km.shape == kp.shape == bt + (1025,)
     assert (km - pm).abs().max().item() <= 5e-5
     assert ((kp - pp).abs() / (pp + 1e-6)).max().item() < 5e-3
+    # the Nyquist bin is computed beside the tiles, and the last rows of
+    # a ragged row tile (131 = 4 * 32 + 3; 4160 = 32 * 128 + 64) are real
+    assert (km[..., -1] - pm[..., -1]).abs().max().item() <= 5e-5
+    assert (km[:, -1] - pm[:, -1]).abs().max().item() <= 5e-5
 
 
 @pytest.mark.cuda

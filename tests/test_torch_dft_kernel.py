@@ -33,6 +33,7 @@ from mec_tpu.ops import pallas_kernels as pk
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.ops import audio_features as taf
 from mec_tpu_torch.ops import dft_kernel
+from mec_tpu_torch.ops._build import SM_COUNT
 from mec_tpu_torch.serving.wire import decode_pcm12
 
 N = 66150
@@ -101,6 +102,61 @@ def test_dft_bf16_rounds_operands():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     c = dft_kernel.dft_spectrograms(x, 'highest')[1]
     assert 0 < (a - c).abs().max().item() < 1e-2 * c.abs().max().item()
+
+
+def test_kernel_tables_are_the_rounded_padded_transposed_bases():
+    """The layouts the CUDA kernel reads (dft_kernel.kernel_tables) hold
+    exactly the values of the plain version's tables: 'bf16' K-major
+    bf16 rows, as .to(torch.bfloat16) rounds the fp32 tables, zero
+    padding past bin 1024; 'highest' the 1024 tiled bins in 16-byte
+    aligned fp32 rows and the Nyquist bin's two columns beside them."""
+    cpu = torch.device('cpu')
+    cos32, sin32 = dft_kernel._bases(cpu, 'highest')
+    cosT, sinT, nyq = dft_kernel.kernel_tables(cpu, 'bf16')
+    assert nyq.numel() == 0
+    for table, ref, rounded in ((cosT, cos32, dft_kernel._bases(cpu, 'bf16')[0]),
+                                (sinT, sin32, dft_kernel._bases(cpu, 'bf16')[1])):
+        assert table.dtype == torch.bfloat16 and table.is_contiguous()
+        assert table.shape == (dft_kernel.N_PAD, dft_kernel.N_FFT)
+        assert dft_kernel.N_PAD % 8 == 0 and table.data_ptr() % 16 == 0
+        assert torch.equal(table[:dft_kernel.N_BINS],
+                           ref.t().to(torch.bfloat16))
+        # the plain version's 'bf16' tables are these values in fp32
+        assert torch.equal(table[:dft_kernel.N_BINS].float(), rounded.t())
+        assert not table[dft_kernel.N_BINS:].any()
+    cos, sin, nyq = dft_kernel.kernel_tables(cpu, 'highest')
+    for table, ref, col in ((cos, cos32, nyq[0]), (sin, sin32, nyq[1])):
+        assert table.dtype == torch.float32 and table.is_contiguous()
+        assert table.shape == (dft_kernel.N_FFT, dft_kernel.N_TILED)
+        assert table.data_ptr() % 16 == 0 and dft_kernel.N_TILED % 4 == 0
+        assert torch.equal(table, ref[:, :dft_kernel.N_TILED])
+        assert torch.equal(col, ref[:, dft_kernel.N_TILED])
+    # the Nyquist bin: cos = (-1)^n exactly, sin the table's rounding noise
+    n = torch.arange(dft_kernel.N_FFT)
+    assert torch.equal(nyq[0], 1.0 - 2.0 * (n % 2))
+    assert nyq[1].abs().max().item() < 1e-12
+
+
+@pytest.mark.parametrize('m', [1, 130, 131, 4160])
+def test_tile_grid_covers_every_output_once(m):
+    """The tile and grid the wrapper hands the kernel, as the kernel cuts
+    them (tiles over the 1024 bins below the Nyquist bin, that bin dealt
+    out row by row to the blocks of a row tile): every (row, bin) of the
+    (m, 1025) output is written exactly once, and one clip (130 rows)
+    still launches a block for every SM."""
+    bm, bn, gx, gy = dft_kernel.tile_grid(m)
+    assert (bm, bn) in dft_kernel.TILES and gx * bn == dft_kernel.N_TILED
+    hits = np.zeros((m, dft_kernel.N_BINS), np.int32)
+    for by in range(gy):
+        for bx in range(gx):
+            hits[by * bm:min((by + 1) * bm, m), bx * bn:(bx + 1) * bn] += 1
+            rows = dft_kernel.nyquist_rows(m, bm, gx, bx, by)
+            hits[rows.start:rows.stop, dft_kernel.N_TILED] += 1
+    assert hits.min() == hits.max() == 1
+    if m >= 130:
+        assert gx * gy >= SM_COUNT
+    if m == 4160:
+        assert (bm, bn, gx, gy) == (128, 64, 16, 33)    # four full waves
 
 
 def test_dft_wrapper_rejects_bad_input():

@@ -32,6 +32,7 @@ from mec_tpu.ops.pallas_resnet import layer1_pallas
 from mec_tpu_torch.convert.from_jax import image_state_from_jax
 from mec_tpu_torch.models.resnet import Bottleneck
 from mec_tpu_torch.ops import pool_kernel, resnet_kernel
+from mec_tpu_torch.ops._build import SM_COUNT
 from mec_tpu_torch.serving.synthetic_artifacts import layer1_quant_params
 
 
@@ -121,6 +122,51 @@ def test_layer1_plain_matches_quantconv_path(layer1_case):
     ref = _as_np(_JaxLayer1().apply({'params': layer1_case['params']},
                                     layer1_case['x']))
     np.testing.assert_array_equal(layer1_case['got'], ref)
+
+
+@pytest.mark.parametrize('m', [1, 3136, 6272, 16895, 16896, 100352])
+def test_pixel_tile_fills_the_card(m):
+    """The pixels a block of the CUDA kernel takes: 128 where that still
+    gives every SM a block, else 16 (one 224 px image: 196 blocks)."""
+    tile = resnet_kernel.pixel_tile(m)
+    assert tile in resnet_kernel.PIXEL_TILES
+    blocks = -(-m // tile)
+    assert (blocks - 1) * tile < m <= blocks * tile     # each pixel once
+    if tile == 128:
+        assert blocks >= SM_COUNT
+    else:
+        assert -(-m // 128) < SM_COUNT
+    if m >= 3136:
+        assert blocks >= SM_COUNT
+
+
+def test_layer1_pointer_tables_read_the_quantconv_buffers_in_place():
+    """The tensor-core kernel takes the QuantConv buffers as they lie
+    (weights (Cout, kh*kw*Cin), Cin fastest: the mma's row.col form), so
+    nothing is repacked: the four tables hold the modules' own pointers
+    in CONV_ORDER. They are kept per model while the blocks hold the
+    very tensors that were checked, and rebuilt when one is replaced."""
+    blocks = _port_blocks(layer1_quant_params(seed=0))
+    cpu = torch.device('cpu')
+    tables = resnet_kernel._pointer_tables(blocks, cpu)
+    assert resnet_kernel._pointer_tables(blocks, cpu) is tables
+    convs = resnet_kernel._convs(blocks)
+    for table, name in zip(tables, resnet_kernel._BUFFERS):
+        assert list(table) == [getattr(c, name).data_ptr() for c in convs]
+    for (b, cname), c in zip(resnet_kernel.CONV_ORDER, convs):
+        assert c is getattr(blocks[b], cname)
+        assert c.kernel_q.shape == (c.cout, c.k * c.k * c.cin)
+        assert c.kernel_q.dtype == torch.int8 and c.kernel_q.is_contiguous()
+    # a scale recalibrated in place keeps its pointer: same tables
+    convs[4].act_scale.fill_(0.5)
+    assert resnet_kernel._pointer_tables(blocks, cpu) is tables
+    # a replaced buffer: new tables with the new pointer
+    convs[5].register_buffer('bias', convs[5].bias.clone())
+    fresh = resnet_kernel._pointer_tables(blocks, cpu)
+    assert fresh is not tables
+    assert fresh[2][5] == convs[5].bias.data_ptr()
+    with pytest.raises(ValueError, match='not contiguous'):
+        resnet_kernel._pointer_tables(blocks, torch.device('meta'))
 
 
 def test_layer1_wrapper_checks_its_blocks():
