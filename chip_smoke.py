@@ -16,8 +16,10 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
   2. build    build the CUDA kernels from mec_tpu_torch/csrc (one nvcc
               per source, in parallel, sm_90a)
   3. kernels  each kernel against its plain PyTorch version on the card,
-              at the serving path's shapes for B=32 and B=1: K1-K4 on
-              seeded tones, chirps, noise and one silent clip; K5 on
+              at the serving path's shapes for B=32 and B=1 (the two
+              cluster kernels K1 and K4 also at B=8 and B=33: the middle
+              bucket, and a ragged second tile; K1 twice, bit-identical):
+              K1-K4 on seeded tones, chirps, noise and one silent clip; K5 on
               Hann-windowed frames of 0.1-scale noise in both
               precisions; K6 and K7 on the stem output of seeded images
               through the image engine's own model
@@ -49,7 +51,10 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               the same engine on device='cpu' (given the card's scales)
               and an fp32 parity tri-modal engine against device='cpu'
               within 1e-4
-  7. times    CUDA-event medians of each kernel, its plain version and,
+  7. times    CUDA-event medians of each kernel (and, beside it, its
+              device time: the summed durations of its device launches
+              in a torch.profiler window of the same 30 calls, which
+              leaves out the wrapper's host work), its plain version and,
               where one PyTorch call computes the same function, that
               call (K5: one matmul against both bases; K6: F.max_pool2d;
               timed here, used nowhere in the port) at B=32 in turns
@@ -65,7 +70,7 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
   8. report   the card's name and power limit; a JSON line of the seven
               kernels (name, route, source, replaces, launches and
               launches_per_dispatch on the tri-modal path, max_abs_err,
-              ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
+              ms by events, device_ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
               bound_peak 'memory', 'fp32', 'bf16_tc' or 'int8_tc',
               library_ms or null; K5's row is the 'highest' precision
               and carries the 'bf16' one under bf16_* keys); then the
@@ -231,6 +236,34 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=REPS):
+    """Median milliseconds a call of fn() keeps the card busy: the summed
+    durations of the device launches of each call (kernels, and any
+    memset or copy it issues) inside one torch.profiler window of reps
+    calls, after 3 warm-up calls. Unlike cuda_ms it leaves out the
+    wrapper's host work before the launch. Returns (ms, launches a
+    call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    check(kern and len(kern) % reps == 0,
+          f'profiler: {len(kern)} device launches in {reps} calls')
+    n = len(kern) // reps
+    per_call = [sum(e.time_range.elapsed_us() for e in kern[i:i + n]) / 1e3
+                for i in range(0, len(kern), n)]
+    return statistics.median(per_call), n
+
+
 def profile_step(fn, steps=10):
     """One profiled window of `steps` calls after 5 warm-up calls: the
     host-clock wall of one synced call (median of 10), the device time
@@ -348,7 +381,7 @@ def main():
     tree = speech_variables(seed=2)
     errs = {}
     inputs32 = None
-    for B in (32, 1):
+    for B in (32, 1, 8, 33):
         y = torch.from_numpy(waves(32, seed=0)[-B:] if B == 1
                              else waves(B, seed=0)).to(dev)
         mag, P = af.hop_spectrograms(y)
@@ -368,14 +401,36 @@ def main():
         # log10f's last bit); MFCC0 of the silent clip is -1131, where
         # one f32 ulp is 1.2e-4: |k - p| <= 1e-4 + 2e-6 |p|
         k, p = speech_kernels.mfcc_mean(P), speech_kernels.mfcc_mean_plain(P)
+        k_again = speech_kernels.mfcc_mean(P)
         torch.cuda.synchronize()
         err = (k - p).abs().max().item()
         ratio = ((k - p).abs() / (1e-4 + 2e-6 * p.abs())).max().item()
         check(ratio <= 1.0,
               f'mfcc_mean B={B}: |err| up to {ratio:.2f}x 1e-4 + 2e-6|p|')
+        check(torch.equal(k, k_again),
+              f'mfcc_mean B={B}: two runs on the same input differ')
         errs['mfcc_mean'] = max(errs.get('mfcc_mean', 0.0), err)
         print(f'kernel mfcc_mean     B={B:2d}: max|err| {err:.3e}, worst '
-              f'|err| / (1e-4 + 2e-6|p|) = {ratio:.3f} (<= 1)')
+              f'|err| / (1e-4 + 2e-6|p|) = {ratio:.3f} (<= 1), two runs '
+              f'bit-identical; a cluster of {speech_kernels.frame_split(B)} '
+              f'blocks a clip')
+
+        # K4: fp32 FMAs in another order than cuBLAS; the JAX kernel
+        # test's bounds: probs 2e-6, penult 2e-5, zeros past column 71
+        k = fwd(x)
+        p = speech_kernels.speech_dnn_plain(x, fwd.params, fwd.dims)
+        torch.cuda.synchronize()
+        e_prob = (k[:, :7] - p[:, :7]).abs().max().item()
+        e_pen = (k[:, 7:] - p[:, 7:]).abs().max().item()
+        check(e_prob <= 2e-6 and e_pen <= 2e-5,
+              f'speech_dnn B={B}: probs err {e_prob}, penult err {e_pen}')
+        check(bool((k[:, 71:] == 0).all()), 'speech_dnn: columns 71+ not 0')
+        errs['speech_dnn'] = max(errs.get('speech_dnn', 0.0), e_prob, e_pen)
+        print(f'kernel speech_dnn    B={B:2d}: probs max|err| {e_prob:.3e} '
+              f'(<= 2e-6), penult {e_pen:.3e} (<= 2e-5)')
+
+        if B not in (32, 1):
+            continue    # K1 and K4 alone are held at the two extra sizes
 
         # K2: integer and compare work only -> bit-exact
         kb, kh = tuning_kernel.tuning_select(mags, residual, pitches)
@@ -409,20 +464,6 @@ def main():
                                    float(diff.max().item()))
         print(f'kernel rolloff_bins  B={B:2d}: {len(bad)} of {rows.shape[0]} '
               f'rows differ, each a one-bin near-tie')
-
-        # K4: fp32 FMAs in another order than cuBLAS; the JAX kernel
-        # test's bounds: probs 2e-6, penult 2e-5, zeros past column 71
-        k = fwd(x)
-        p = speech_kernels.speech_dnn_plain(x, fwd.params, fwd.dims)
-        torch.cuda.synchronize()
-        e_prob = (k[:, :7] - p[:, :7]).abs().max().item()
-        e_pen = (k[:, 7:] - p[:, 7:]).abs().max().item()
-        check(e_prob <= 2e-6 and e_pen <= 2e-5,
-              f'speech_dnn B={B}: probs err {e_prob}, penult err {e_pen}')
-        check(bool((k[:, 71:] == 0).all()), 'speech_dnn: columns 71+ not 0')
-        errs['speech_dnn'] = max(errs.get('speech_dnn', 0.0), e_prob, e_pen)
-        print(f'kernel speech_dnn    B={B:2d}: probs max|err| {e_prob:.3e} '
-              f'(<= 2e-6), penult {e_pen:.3e} (<= 2e-5)')
 
         # K5, both precisions, against the plain version on the same frames
         frames = noise_frames(B)
@@ -858,13 +899,15 @@ def main():
         with torch.inference_mode():
             p1, l1, k1, k2, l2, p2 = (cuda_ms(f) if f else None
                                       for f in order)
+            dev_ms, n_dev = device_ms(kern)
         times[name] = (statistics.median([k1, k2]),
                        statistics.median([p1, p2]),
-                       statistics.median([l1, l2]) if lib else None)
+                       statistics.median([l1, l2]) if lib else None, dev_ms)
         lib_ms = f'{times[name][2]:.4f} ms' if lib else 'none'
-        print(f'time {name:13s} B=32: kernel {times[name][0]:.4f} ms, plain '
-              f'{times[name][1]:.4f} ms, library call {lib_ms} (median of '
-              f'{REPS} CUDA-event runs; {card})')
+        print(f'time {name:13s} B=32: kernel {times[name][0]:.4f} ms by '
+              f'events, {dev_ms:.4f} ms on the device ({n_dev} launches a '
+              f'call, torch.profiler), plain {times[name][1]:.4f} ms, '
+              f'library call {lib_ms} (medians of {REPS} runs; {card})')
 
     # the bounds, from the shapes just timed (data-sheet peaks, PEAKS)
     Bt, T, _ = P.shape
@@ -911,8 +954,9 @@ def main():
     }
     for name, (ms, by, peak) in bounds.items():
         print(f'bound {name:13s} B=32: {ms:.5f} ms, bound by {by} ({peak} '
-              f'peak of the H100 SXM data sheet); kernel at '
-              f'{ms / times[name][0]:.3f} of it')
+              f'peak of the H100 SXM data sheet); share of the kernel\'s '
+              f'device time {ms / times[name][3]:.3f} (of its event time '
+              f'{ms / times[name][0]:.3f})')
     for B in (1, 8, 32):
         wire_dev = engine._to_device(engine._wire_waves(clips[:B], B))
         step = cuda_ms(lambda: engine._speech_forward(wire_dev))
@@ -1003,18 +1047,20 @@ def main():
     # binds, bound_peak which data-sheet peak. The bf16 library call
     # rounds its result to bf16: a floor, not the same function
     def entry(name):
-        ms, plain_ms, lib_ms = times[name]
+        ms, plain_ms, lib_ms, dev_ms = times[name]
         b_ms, b_by, b_peak = bounds[name]
         e = {'name': name, 'route': 'cuda', 'source': sources[name][0],
              'replaces': sources[name][1], 'launches': tri_launches[name],
              'launches_per_dispatch': per_dispatch[name],
-             'max_abs_err': errs[name], 'ms': ms, 'plain_ms': plain_ms,
+             'max_abs_err': errs[name], 'ms': ms, 'device_ms': dev_ms,
+             'plain_ms': plain_ms,
              'bound_ms': b_ms, 'bound_by': b_by, 'bound_peak': b_peak,
              'library_ms': lib_ms}
         if name == 'dft_spectrograms':
-            ms, plain_ms, lib_ms = times[name + '[bf16]']
+            ms, plain_ms, lib_ms, dev_ms = times[name + '[bf16]']
             b_ms, b_by, b_peak = bounds[name + '[bf16]']
-            e.update(bf16_ms=ms, bf16_plain_ms=plain_ms, bf16_bound_ms=b_ms,
+            e.update(bf16_ms=ms, bf16_device_ms=dev_ms,
+                     bf16_plain_ms=plain_ms, bf16_bound_ms=b_ms,
                      bf16_bound_by=b_by, bf16_bound_peak=b_peak,
                      bf16_library_ms=lib_ms)
         return e

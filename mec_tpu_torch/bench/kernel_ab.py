@@ -1,28 +1,46 @@
 #!/usr/bin/env python3
-"""K5 (dft_power) and K7 (layer1_int8) on one NVIDIA GPU: build report,
-checks against the plain versions, and times, optionally in turns with
-an older build of the two sources.
+"""K1 (mfcc_mean), K4 (speech_dnn), K5 (dft_power) and K7 (layer1_int8)
+on one NVIDIA GPU: build report, checks against the plain versions, and
+times, optionally in turns with an older build of the sources.
 
-    python3 -m mec_tpu_torch.bench.kernel_ab [--old-csrc DIR] [--reps N]
-                                              [--profile] [--split]
+    python3 -m mec_tpu_torch.bench.kernel_ab [--kernels k1,k4,k5,k7]
+        [--old-csrc DIR] [--reps N] [--profile] [--split] [--variants]
+        [--trace]
 
-* build: what ptxas reports for the two sources (registers, spills,
-  shared memory) and, where the toolkit has cuobjdump, how many
-  tensor-core instructions the built library holds per kernel (HMMA for
-  K5 'bf16', IMMA for K7's convs).
+* build: what ptxas reports for the sources (registers, spills, shared
+  memory) and, where the toolkit has cuobjdump, how many tensor-core
+  instructions the built library holds per kernel (HMMA for K5 'bf16',
+  IMMA for K7's convs) and, for the two cluster kernels K1 and K4, their
+  cluster barriers (UCGABAR) and cp.async copies (LDGSTS).
+* check, K1: B in {1, 2, 8, 32, 33} with the silent clip and a clip of
+  one loud frame in the batch, |k - p| <= 1e-4 + 2e-6|p| against the
+  plain version, two runs torch.equal, and both against the same
+  algebra in fp64. K4: B in {1, 8, 9, 32, 33,
+  64} at full width and with a narrow network (56-32-16-7): probs 2e-6,
+  penult 2e-5, zeros past the packed values.
 * check: K5 at B*T in {1, 130, 131, 4160} in both precisions against the
   plain version (mag atol 5e-5, P relative 5e-3, the JAX package's
   contract) and, for reference, both against fp64 sums of the same
   operands;
   K7 torch.equal against the plain version at B in {1, 2, 32} and an odd
   map.
-* time: CUDA-event medians at B = 32 (and B = 1). With --old-csrc, a
-  directory that holds an earlier dft_power.cu and layer1_int8.cu (for
-  example `git show <commit>:mec_tpu_torch/csrc/dft_power.cu`), those
-  are built into a library of their own and timed in turns old, new,
-  new, old. The older sources must have the interface of the first
-  version of these kernels (one fp32 table layout for K5; six scratch
-  maps for K7).
+* time: CUDA-event medians at B = 32 (and B = 1; K1 and K4 also B = 8).
+  With --old-csrc, a directory that holds earlier sources (for example
+  `git show <commit>:mec_tpu_torch/csrc/dft_power.cu`), those found
+  there are built into libraries of their own and timed in turns old,
+  new, new, old. An older dft_power.cu and layer1_int8.cu must have the
+  interface of the first version of these kernels (one fp32 table
+  layout for K5; six scratch maps for K7); an older mfcc_mean.cu and
+  speech_dnn.cu the one-block-a-clip and 8-row-tile interface (dense
+  mel table with lo/hi runs; dims, n_layers, B). --profile adds the
+  device time of each launch (torch.profiler), for the old K1 and K4
+  too. --variants times K4 at cluster sizes 8 and 16 (at 8 a 512-wide
+  layer's slice outgrows its shared-memory slot and takes the scalar
+  path) and K1 at 5, 10 and 13 blocks a clip, through the C interface.
+
+* --trace: K1 and K4 built alone with -DMEC_TRACE (csrc/trace.cuh): the
+  clocks one block spends between the phase marks of its source, at
+  B = 1 and 32 (thread 0 of block 0, clock64; the fifth launch).
 
 Exits non-zero on the first failed check. Needs a CUDA device.
 """
@@ -43,7 +61,10 @@ import mec_tpu_torch  # noqa: F401  (TF32 off)
 from mec_tpu_torch.convert.from_jax import image_state_from_jax
 from mec_tpu_torch.models.resnet import Bottleneck
 from mec_tpu_torch.ops import _build, dft_kernel, resnet_kernel
-from mec_tpu_torch.serving.synthetic_artifacts import layer1_quant_params
+from mec_tpu_torch.ops import audio_features as af
+from mec_tpu_torch.ops import speech_kernels as sk
+from mec_tpu_torch.serving.synthetic_artifacts import (layer1_quant_params,
+                                                       speech_variables)
 
 MAG_ATOL, P_REL = 5e-5, 5e-3
 
@@ -83,14 +104,18 @@ def layer1_blocks(dev, seed=0):
     return blocks
 
 
-def build_report():
+SOURCES = {'k1': 'mfcc_mean.cu', 'k4': 'speech_dnn.cu',
+           'k5': 'dft_power.cu', 'k7': 'layer1_int8.cu'}
+
+
+def build_report(kernels):
     _build.library()
     log = _build.build_info['log']
     lib_path = _build.build()     # the hashed library now exists: its path
     keep = False
     for line in log.splitlines():
         if line.startswith('--- '):
-            keep = line.split()[1] in ('dft_power.cu', 'layer1_int8.cu')
+            keep = line.split()[1] in [SOURCES[k] for k in kernels]
         if keep and ('registers' in line or 'spill' in line
                      or 'Compiling entry' in line):
             print('ptxas:', line.strip().split('ptxas info    : ')[-1])
@@ -105,31 +130,336 @@ def build_report():
         if 'Function :' in line:
             name = line.split('Function :')[1].strip()
         for op in ('HMMA', 'IMMA', 'HGMMA', 'IGMMA', 'IDP.4A', 'IDP4A',
-                   'LDGSTS'):
+                   'LDGSTS', 'UCGABAR'):
             if name and f' {op}' in line:
                 counts.setdefault(name, {}).setdefault(op, 0)
                 counts[name][op] += 1
     for name, ops in counts.items():
-        if 'dft_power' in name or 'conv' in name:
+        if any(tag in name for tag in ('dft_power', 'conv', 'mfcc_mean',
+                                       'speech_dnn')):
             print(f'sass: {name[:100]}: {ops}')
 
 
-def old_library(csrc):
-    """Build DIR's dft_power.cu and layer1_int8.cu into a library of
-    their own (the first version's C interface)."""
+def old_library(csrc, kernels):
+    """Build those of DIR's sources that belong to `kernels` into a
+    library of their own, each bound by its earlier C interface.
+    Returns (library, the kernels it holds)."""
+    have = [k for k in kernels if (Path(csrc) / SOURCES[k]).exists()]
+    if not have:
+        sys.exit(f'kernel_ab: none of {kernels} has a source in {csrc}')
     out = Path(tempfile.mkdtemp(prefix='kernel_ab_')) / 'libold.so'
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS[:-2], '-shared', '-o', str(out),
-           str(Path(csrc) / 'dft_power.cu'), str(Path(csrc) / 'layer1_int8.cu')]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS[:-2], '-I', str(_build.CSRC),
+           '-shared', '-o', str(out),
+           *(str(Path(csrc) / SOURCES[k]) for k in have)]
     run = subprocess.run(cmd, capture_output=True, text=True)
     if run.returncode:
         sys.exit(f'old build failed:\n{run.stdout}{run.stderr}')
     lib = ctypes.CDLL(str(out))
     P, I = ctypes.c_void_p, ctypes.c_int
     ptrs = P * 10
-    lib.mec_dft_power.argtypes = [P, P, P, I, I, I, I, P, P, P]
-    lib.mec_layer1_int8.argtypes = [P, I, I, I, ptrs, ptrs, ptrs, P,
-                                    P, P, P, P, P, P, P, P]
-    return lib
+    if 'k5' in have:
+        lib.mec_dft_power.argtypes = [P, P, P, I, I, I, I, P, P, P]
+    if 'k7' in have:
+        lib.mec_layer1_int8.argtypes = [P, I, I, I, ptrs, ptrs, ptrs, P,
+                                        P, P, P, P, P, P, P, P]
+    if 'k1' in have:
+        lib.mec_mfcc_mean.argtypes = [P, I, I, I, P, P, P, P, P, P]
+    if 'k4' in have:
+        lib.mec_speech_dnn.argtypes = [P, P, ctypes.POINTER(I), I, I, P, P]
+    return lib, have
+
+
+def old_mfcc(lib, P):
+    """The one-block-a-clip K1: dense mel table and its [lo, hi) runs."""
+    mel, lo, hi, dct = sk._mel_tables(P.device)
+    out = torch.empty((P.shape[0], sk.N_MFCC), dtype=torch.float32,
+                      device=P.device)
+    err = lib.mec_mfcc_mean(P.data_ptr(), P.shape[0], sk.N_FRAMES, sk.N_BINS,
+                            mel.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                            dct.data_ptr(), out.data_ptr(),
+                            _build.stream(P.device))
+    assert err == 0, err
+    return out
+
+
+def old_dnn(lib, x, fwd):
+    """The 8-row-tile K4, with the ctypes dims it built on every call."""
+    out = torch.empty((x.shape[0], sk.PACKED_COLS), dtype=torch.float32,
+                      device=x.device)
+    c_dims = (ctypes.c_int * len(fwd.dims))(*fwd.dims)
+    err = lib.mec_speech_dnn(x.data_ptr(), fwd.params.data_ptr(), c_dims,
+                             len(fwd.dims) - 1, x.shape[0], out.data_ptr(),
+                             _build.stream(x.device))
+    assert err == 0, err
+    return out
+
+
+def power_of(B, dev, seed=0):
+    """(B, 130, 1025) power spectrograms of seeded clips: silence at row
+    0, and from B = 2 on a clip whose only sound is one loud frame (row
+    1: the clip's max lives in one block's frames), then tones, chirps
+    and noise."""
+    rng = np.random.RandomState(seed)
+    n = 66150
+    t = np.arange(n) / 22050.0
+    rows = [np.zeros(n)]
+    for i in range(1, B):
+        kind = i % 3
+        if kind == 0:
+            y = 0.3 * np.sin(2 * np.pi * (150 + 37 * i) * t)
+        elif kind == 1:
+            y = 0.2 * np.sin(2 * np.pi * (200 + 300 * t * i) * t)
+        else:
+            y = 0.02 * i * rng.randn(n)
+        rows.append(y + 0.01 * rng.randn(n))
+    y = torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
+    P = af.hop_spectrograms(y)[1].contiguous()
+    if B >= 2:
+        P[1] = 1e-12
+        P[1, 77] = torch.from_numpy(
+            rng.rand(sk.N_BINS).astype(np.float32) * 1e3).to(dev)
+    return P
+
+
+NARROW = (56, 32, 16, 7)
+
+
+def narrow_tree(seed=3):
+    """A narrow speech DNN (56-32-16-7) in the Flax layout."""
+    rng = np.random.RandomState(seed)
+    params, stats = {}, {}
+    for i, (a, b) in enumerate(zip(NARROW[:-2], NARROW[1:-1])):
+        params[f'dense_{i}'] = {
+            'kernel': rng.randn(a, b).astype(np.float32) / np.sqrt(a),
+            'bias': rng.randn(b).astype(np.float32) * 0.1}
+        params[f'bn_{i}'] = {'scale': 1 + 0.1 * rng.randn(b).astype(np.float32),
+                             'bias': 0.1 * rng.randn(b).astype(np.float32)}
+        stats[f'bn_{i}'] = {'mean': 0.1 * rng.randn(b).astype(np.float32),
+                            'var': 1 + 0.1 * rng.rand(b).astype(np.float32)}
+    params['dense_out'] = {
+        'kernel': rng.randn(*NARROW[-2:]).astype(np.float32) / 4,
+        'bias': rng.randn(NARROW[-1]).astype(np.float32) * 0.1}
+    return {'params': params, 'batch_stats': stats}
+
+
+def check_speech(dev, kernels):
+    ok = True
+    if 'k1' in kernels:
+        for B in (1, 2, 8, 32, 33):
+            P = power_of(B, dev, seed=B)
+            k, k2 = sk.mfcc_mean(P), sk.mfcc_mean(P)
+            p = sk.mfcc_mean_plain(P)
+            # the same algebra in fp64: which of the two carries the error
+            mel, _lo, _hi, dct = (t.double() for t in sk._mel_tables(dev))
+            db = 10.0 * torch.log10(torch.clamp_min(P.double() @ mel.T, 1e-10))
+            db = torch.maximum(db, db.amax(dim=(1, 2), keepdim=True) - 80.0)
+            ref = (db @ dct.T).mean(dim=1)
+            torch.cuda.synchronize()
+            ratio = ((k - p).abs() / (1e-4 + 2e-6 * p.abs())).max().item()
+            same = torch.equal(k, k2)
+            good = ratio <= 1.0 and same and bool(torch.isfinite(k).all())
+            ok &= good
+            print(f'K1 B={B:2d} split {sk.frame_split(B)}: max|err| '
+                  f'{(k - p).abs().max().item():.3e}, worst |err| / (1e-4 + '
+                  f'2e-6|p|) {ratio:.3f}, two runs '
+                  f'{"equal" if same else "DIFFER"}; against fp64: kernel '
+                  f'{(k - ref).abs().max().item():.3e}, plain '
+                  f'{(p - ref).abs().max().item():.3e} '
+                  f'{"ok" if good else "FAIL"}')
+    if 'k4' in kernels:
+        for what, tree in (('full', speech_variables(seed=2)),
+                           ('narrow', narrow_tree())):
+            fwd = sk.make_speech_dnn(tree, dev)
+            n_cls, pen = fwd.dims[-1], min(fwd.dims[-2], 128 - fwd.dims[-1])
+            for B in (1, 8, 9, 32, 33, 64):
+                x = torch.from_numpy(np.random.RandomState(B).randn(
+                    B, 56).astype(np.float32)).to(dev)
+                k = fwd(x)
+                p = sk.speech_dnn_plain(x, fwd.params, fwd.dims)
+                torch.cuda.synchronize()
+                e_prob = (k[:, :n_cls] - p[:, :n_cls]).abs().max().item()
+                e_pen = (k[:, n_cls:] - p[:, n_cls:]).abs().max().item()
+                good = (e_prob <= 2e-6 and e_pen <= 2e-5
+                        and bool((k[:, n_cls + pen:] == 0).all()))
+                ok &= good
+                print(f'K4 {what:6s} {fwd.dims} B={B:2d} grid '
+                      f'{sk.dnn_grid(B)} x {sk.DNN_CLUSTER}: probs max|err| '
+                      f'{e_prob:.3e}, penult {e_pen:.3e} '
+                      f'{"ok" if good else "FAIL"}')
+    return ok
+
+
+def device_us(fn, reps):
+    """Median device time (us) of a call of fn(): the summed durations of
+    its device launches in a torch.profiler window of reps calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    n = len(kern) // reps
+    if n == 0:
+        sys.exit(f'kernel_ab: {len(kern)} device launches in {reps} calls')
+    return statistics.median(
+        sum(e.time_range.elapsed_us() for e in kern[i:i + n])
+        for i in range(0, n * reps, n))
+
+
+def time_speech(dev, kernels, old, old_have, args, card):
+    fwd = sk.make_speech_dnn(speech_variables(seed=2), dev)
+    for B in (32, 8, 1):
+        P = power_of(B, dev)
+        x = torch.from_numpy(np.random.RandomState(B).randn(B, 56)
+                             .astype(np.float32)).to(dev)
+        cases = []
+        if 'k1' in kernels:
+            cases.append(('K1', 'k1', lambda: sk.mfcc_mean(P),
+                          lambda: old_mfcc(old, P)))
+        if 'k4' in kernels:
+            cases.append(('K4', 'k4', lambda: fwd(x),
+                          lambda: old_dnn(old, x, fwd)))
+        for name, key, new_fn, old_fn in cases:
+            if key not in old_have:
+                line = f'new {cuda_ms(new_fn, args.reps):.4f} ms by events'
+                if args.profile:
+                    line += f', {device_us(new_fn, args.reps):.1f} us on the device'
+                print(f'time {name} B={B}: {line} (median of {args.reps}; {card})')
+                continue
+            order = (old_fn, new_fn, new_fn, old_fn)
+            o1, n1, n2, o2 = (cuda_ms(f, args.reps) for f in order)
+            line = (f'old {statistics.median([o1, o2]):.4f} ms [{o1:.4f}, '
+                    f'{o2:.4f}], new {statistics.median([n1, n2]):.4f} ms '
+                    f'[{n1:.4f}, {n2:.4f}] by events')
+            if args.profile:
+                o1, n1, n2, o2 = (device_us(f, args.reps) for f in order)
+                line += (f'; on the device old {statistics.median([o1, o2]):.1f}'
+                         f' us [{o1:.1f}, {o2:.1f}], new '
+                         f'{statistics.median([n1, n2]):.1f} us [{n1:.1f}, '
+                         f'{n2:.1f}]')
+            print(f'time {name} B={B}: {line} (medians of {args.reps}, in '
+                  f'turns old, new, new, old; {card})')
+
+
+K4_MARKS = (['ask for every copy', 'cluster.sync (all blocks run)']
+            + [f'L{n} {what}' for n in range(5) for what in (
+                'wait for weights', 'products + fold', 'slabs, bias, ReLU',
+                'exchange', 'cluster.sync')]
+            + ['wait for weights', 'output layer, softmax, rows'])
+K1_MARKS = ['ask for copies, tables land', 'frames: copy, mel, dB',
+            'block max, tell the cluster, cluster.sync',
+            'clip max, clamped time sums', 'cluster.sync',
+            'block 0: mean and DCT']
+
+
+def trace_phases(dev, kernels, card):
+    """Build K1 / K4 alone with -DMEC_TRACE and print the clocks between
+    the marks of the last of five launches."""
+    P_, I = ctypes.c_void_p, ctypes.c_int
+    fwd = sk.make_speech_dnn(speech_variables(seed=2), dev)
+    for key, marks in (('k1', K1_MARKS), ('k4', K4_MARKS)):
+        if key not in kernels:
+            continue
+        out = Path(tempfile.mkdtemp(prefix='kernel_ab_')) / 'libtrace.so'
+        run = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS[:-2], '-DMEC_TRACE', '-shared',
+             '-o', str(out), str(_build.CSRC / SOURCES[key])],
+            capture_output=True, text=True)
+        if run.returncode:
+            sys.exit(f'trace build failed:\n{run.stdout}{run.stderr}')
+        lib = ctypes.CDLL(str(out))
+        lib.mec_trace_read.argtypes = [P_, P_]
+        for B in (1, 32):
+            if key == 'k1':
+                lib.mec_mfcc_mean.argtypes = sk._lib_mfcc().mec_mfcc_mean.argtypes
+                P = power_of(B, dev)
+                taps, runs, dct, n_taps = sk._kernel_tables(P.device)
+                res = torch.empty((B, sk.N_MFCC), device=dev)
+
+                def launch():
+                    return lib.mec_mfcc_mean(
+                        P.data_ptr(), B, sk.N_FRAMES, sk.N_BINS,
+                        taps.data_ptr(), n_taps, runs.data_ptr(),
+                        dct.data_ptr(), sk.frame_split(B), res.data_ptr(),
+                        _build.stream(dev))
+            else:
+                lib.mec_speech_dnn.argtypes = sk._lib_dnn().mec_speech_dnn.argtypes
+                x = torch.randn(B, 56, device=dev)
+                res = torch.empty((B, 128), device=dev)
+
+                def launch():
+                    return lib.mec_speech_dnn(
+                        x.data_ptr(), fwd.params.data_ptr(), fwd.c_dims,
+                        len(fwd.dims) - 1, B, sk.DNN_CLUSTER, res.data_ptr(),
+                        _build.stream(dev))
+            for _ in range(5):
+                err = launch()
+                assert err == 0, err
+                torch.cuda.synchronize()
+            clocks = (ctypes.c_longlong * 128)()
+            count = I()
+            err = lib.mec_trace_read(ctypes.addressof(clocks),
+                                     ctypes.addressof(count))
+            assert err == 0, err
+            steps = np.diff(np.array(clocks[:count.value]))
+            names = marks if len(marks) == len(steps) else [
+                f'mark {i}' for i in range(len(steps))]
+            print(f'trace {key.upper()} B={B}: {int(steps.sum())} clocks in '
+                  f'block 0 ({card}): '
+                  + ', '.join(f'{n} {v}' for n, v in zip(names, steps)))
+
+
+def variant_times(dev, kernels, reps, card):
+    """K4 at other cluster sizes and K1 at other frame splits, through
+    the C interface (device time; a refused launch is reported)."""
+    lib = _build.library()
+    sk._lib_mfcc(), sk._lib_dnn()
+    fwd = sk.make_speech_dnn(speech_variables(seed=2), dev)
+    for B in (32, 1):
+        if 'k4' in kernels:
+            x = torch.from_numpy(np.random.RandomState(B).randn(B, 56)
+                                 .astype(np.float32)).to(dev)
+            out = torch.empty((B, 128), device=dev)
+            for cluster in (8, 16):
+                def run():
+                    return lib.mec_speech_dnn(
+                        x.data_ptr(), fwd.params.data_ptr(), fwd.c_dims,
+                        len(fwd.dims) - 1, B, cluster, out.data_ptr(),
+                        _build.stream(dev))
+                err = run()
+                if err:
+                    print(f'variant K4 B={B} cluster {cluster}: launch '
+                          f'refused, CUDA error {err}')
+                    continue
+                print(f'variant K4 B={B} cluster {cluster}: '
+                      f'{device_us(run, reps):.1f} us on the device ({card})')
+        if 'k1' in kernels:
+            P = power_of(B, dev)
+            taps, runs, dct, n_taps = sk._kernel_tables(P.device)
+            out = torch.empty((B, sk.N_MFCC), device=dev)
+            for split in (5, 10, 13):
+                def run():
+                    return lib.mec_mfcc_mean(
+                        P.data_ptr(), B, sk.N_FRAMES, sk.N_BINS,
+                        taps.data_ptr(), n_taps, runs.data_ptr(),
+                        dct.data_ptr(), split, out.data_ptr(),
+                        _build.stream(dev))
+                err = run()
+                if err:
+                    print(f'variant K1 B={B} split {split}: launch refused, '
+                          f'CUDA error {err}')
+                    continue
+                ref = sk.mfcc_mean_plain(P)
+                worst = ((out - ref).abs() / (1e-4 + 2e-6 * ref.abs())).max()
+                print(f'variant K1 B={B} split {split}: '
+                      f'{device_us(run, reps):.1f} us on the device, worst '
+                      f'|err| / (1e-4 + 2e-6|p|) {worst.item():.3f} ({card})')
 
 
 def old_dft(lib, frames, precision):
@@ -210,14 +540,23 @@ def split_times(dev, reps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--old-csrc', help='directory with an earlier '
-                    'dft_power.cu and layer1_int8.cu to time in turns')
+    ap.add_argument('--kernels', default='k1,k4,k5,k7',
+                    help='which of k1,k4,k5,k7 to report, check and time')
+    ap.add_argument('--old-csrc', help='directory with earlier sources of '
+                    'these kernels to time in turns')
     ap.add_argument('--reps', type=int, default=30)
     ap.add_argument('--split', action='store_true', help="K5's time as a "
                     'line in the contraction length (loop against epilogue)')
     ap.add_argument('--profile', action='store_true', help='device time '
-                    'of each launch at B=32 (torch.profiler)')
+                    'of each launch (torch.profiler)')
+    ap.add_argument('--variants', action='store_true', help='K4 at other '
+                    'cluster sizes, K1 at other frame splits')
+    ap.add_argument('--trace', action='store_true', help='clocks between '
+                    "the phase marks of K1's and K4's sources")
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(',') if k]
+    if not kernels or set(kernels) - set(SOURCES):
+        sys.exit(f'kernel_ab: --kernels takes some of {sorted(SOURCES)}')
     if not torch.cuda.is_available():
         sys.exit('kernel_ab: needs an NVIDIA GPU')
     dev = torch.device('cuda')
@@ -225,14 +564,14 @@ def main():
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(f'card: {card} | torch {torch.__version__}')
-    build_report()
-    ok = True
+    build_report(kernels)
+    ok = check_speech(dev, kernels)
 
     # ------------------------------------------------------- K5 checks
     # the fp64 reference takes the operands the precision takes (for
     # 'bf16' the rounded frames and tables), so it shows what the fp32
     # summation alone costs each version
-    for m in (1, 130, 131, 4160):
+    for m in (1, 130, 131, 4160) if 'k5' in kernels else ():
         frames = frames_of(m, dev, seed=m)
         for prec in dft_kernel.PRECISIONS:
             cos64, sin64 = (t.double() for t in dft_kernel._bases(dev, prec))
@@ -259,9 +598,9 @@ def main():
                   f'{"ok" if good else "FAIL"}')
 
     # ------------------------------------------------------- K7 checks
-    blocks = layer1_blocks(dev)
+    blocks = layer1_blocks(dev) if 'k7' in kernels else None
     for shape in ((1, 56, 56, 64), (2, 56, 56, 64), (32, 56, 56, 64),
-                  (2, 13, 9, 64), (3, 57, 55, 64)):
+                  (2, 13, 9, 64), (3, 57, 55, 64)) if blocks else ():
         x = torch.from_numpy(np.abs(np.random.RandomState(1).randn(*shape))
                              .astype(np.float32)).to(dev, torch.bfloat16)
         with torch.inference_mode():
@@ -280,20 +619,26 @@ def main():
         sys.exit('kernel_ab: a check failed')
 
     # ----------------------------------------------------------- times
-    old = old_library(args.old_csrc) if args.old_csrc else None
+    old, old_have = (old_library(args.old_csrc, kernels) if args.old_csrc
+                     else (None, []))
     with torch.inference_mode():
+        time_speech(dev, kernels, old, old_have, args, card)
         for B in (32, 1):
             frames = frames_of(B * 130, dev).reshape(B, 130, 2048)
             x = torch.from_numpy(np.abs(np.random.RandomState(1).randn(
                 B, 56, 56, 64)).astype(np.float32)).to(dev, torch.bfloat16)
-            cases = [(f'K5 {prec}',
-                      lambda prec=prec: dft_kernel.dft_spectrograms(frames, prec),
-                      (lambda prec=prec: old_dft(old, frames, prec)))
-                     for prec in dft_kernel.PRECISIONS]
-            cases.append(('K7', lambda: resnet_kernel.layer1(x, blocks),
-                          lambda: old_layer1(old, x, blocks)))
-            for name, new_fn, old_fn in cases:
-                if old is None:
+            cases = []
+            if 'k5' in kernels:
+                cases += [(f'K5 {prec}', 'k5', lambda prec=prec:
+                           dft_kernel.dft_spectrograms(frames, prec),
+                           (lambda prec=prec: old_dft(old, frames, prec)))
+                          for prec in dft_kernel.PRECISIONS]
+            if 'k7' in kernels:
+                cases.append(('K7', 'k7',
+                              lambda: resnet_kernel.layer1(x, blocks),
+                              lambda: old_layer1(old, x, blocks)))
+            for name, key, new_fn, old_fn in cases:
+                if key not in old_have:
                     print(f'time {name} B={B}: new {cuda_ms(new_fn, args.reps):.4f}'
                           f' ms (median of {args.reps}; {card})')
                     continue
@@ -304,9 +649,13 @@ def main():
                       f'{statistics.median([n1, n2]):.4f} ms [{n1:.4f}, '
                       f'{n2:.4f}] (medians of {args.reps}, in turns old, new,'
                       f' new, old; {card})')
-    if args.split:
+        if args.variants:
+            variant_times(dev, kernels, args.reps, card)
+    if args.trace:
+        trace_phases(dev, kernels, card)
+    if args.split and 'k5' in kernels:
         split_times(dev, args.reps)
-    if args.profile:
+    if args.profile and ('k5' in kernels or 'k7' in kernels):
         from torch.profiler import ProfilerActivity, profile
         for B in (32, 1):
             frames = frames_of(B * 130, dev).reshape(B, 130, 2048)
@@ -315,8 +664,9 @@ def main():
             with torch.inference_mode(), profile(activities=[
                     ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
-                    resnet_kernel.layer1(x, blocks)
-                    for prec in dft_kernel.PRECISIONS:
+                    if 'k7' in kernels:
+                        resnet_kernel.layer1(x, blocks)
+                    for prec in dft_kernel.PRECISIONS if 'k5' in kernels else ():
                         dft_kernel.dft_spectrograms(frames, prec)
                 torch.cuda.synchronize()
             by = {}

@@ -6,7 +6,9 @@ imports no jax, so it runs on the card's machine (which has none):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (--noconftest: tests/conftest.py configures jax.) Inputs are the serving
-path's shapes at B=1 and B=32, made from a numpy seed. Tolerances, each
+path's shapes at B=1 and B=32 (the two cluster kernels K1 and K4 at more
+sizes: the middle bucket, tile edges and ragged tails), made from a
+numpy seed. Tolerances, each
 with its reason: K1 |k - p| <= 1e-4 + 2e-6|p| (summation order and
 log10f's last bit; MFCC0 reaches -1131, where one f32 ulp is 1.2e-4);
 K2 bit-exact (integer and compare work only); K3 equal bins except
@@ -28,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from mec_tpu_torch.bench.kernel_ab import narrow_tree, power_of
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.convert.from_jax import image_state_from_jax
 from mec_tpu_torch.models.resnet import Bottleneck
@@ -68,14 +71,34 @@ def _spectra(B, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B', [1, 32])
+@pytest.mark.parametrize('B', [1, 2, 8, 32, 33])
 def test_mfcc_mean_kernel(dev, B):
-    _mag, P = _spectra(B, dev)
+    """Row 0 is the silent clip; from B = 2 on row 1 is a clip whose only
+    sound is one loud frame, so the clip's max lives in the frames of
+    one block of its cluster. Two runs give the same bits (no atomics)."""
+    P = power_of(B, dev, seed=B)
     before = speech_kernels.mfcc_mean.launches
+    k = speech_kernels.mfcc_mean(P)
+    again = speech_kernels.mfcc_mean(P)
+    p = speech_kernels.mfcc_mean_plain(P)
+    torch.cuda.synchronize()
+    assert speech_kernels.mfcc_mean.launches == before + 2
+    assert bool(torch.isfinite(k).all())
+    assert bool(((k - p).abs() <= 1e-4 + 2e-6 * p.abs()).all())
+    assert torch.equal(k, again)
+
+
+@pytest.mark.cuda
+def test_mfcc_mean_kernel_on_an_offset_view(dev):
+    """A clip that starts 4 bytes off a 16-byte boundary (a view into a
+    larger buffer, not a copy): the kernel aligns its wide copies itself."""
+    base = torch.zeros(3 * 130 * 1025 + 1, device=dev)
+    P = base[1:].view(3, 130, 1025)
+    P.copy_(power_of(3, dev, seed=7))
+    assert P.data_ptr() % 16 == 4 and P.is_contiguous()
     k = speech_kernels.mfcc_mean(P)
     p = speech_kernels.mfcc_mean_plain(P)
     torch.cuda.synchronize()
-    assert speech_kernels.mfcc_mean.launches == before + 1
     assert bool(((k - p).abs() <= 1e-4 + 2e-6 * p.abs()).all())
 
 
@@ -108,17 +131,38 @@ def test_rolloff_bins_kernel(dev, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B', [1, 32])
-def test_speech_dnn_kernel(dev, B):
+@pytest.mark.parametrize('network', ['full', 'narrow'])
+@pytest.mark.parametrize('B', [1, 8, 9, 32, 33, 64])
+def test_speech_dnn_kernel(dev, B, network):
+    """Full width (every hidden layer from staged weights) and a narrow
+    network (56-32-16-7: too narrow for 16 blocks to share in 4-column
+    groups, so its hidden layers take the scalar path)."""
     x = torch.from_numpy(np.random.RandomState(B).randn(B, 56)
                          .astype(np.float32)).to(dev)
-    fwd = speech_kernels.make_speech_dnn(speech_variables(), dev)
+    tree = speech_variables() if network == 'full' else narrow_tree()
+    fwd = speech_kernels.make_speech_dnn(tree, dev)
+    pen = fwd.dims[-2]
+    before = speech_kernels.speech_dnn.launches
     k = fwd(x)
     p = speech_kernels.speech_dnn_plain(x, fwd.params, fwd.dims)
     torch.cuda.synchronize()
+    assert speech_kernels.speech_dnn.launches == before + 1
     assert (k[:, :7] - p[:, :7]).abs().max().item() <= 2e-6
     assert (k[:, 7:] - p[:, 7:]).abs().max().item() <= 2e-5
+    assert bool((k[:, 7 + pen:] == 0).all())
     assert bool((k[:, 71:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dims', [(56, 513, 7), (56, 7), (56, 64, 129),
+                                  (56,) + (32,) * 8 + (7,)])
+def test_speech_dnn_kernel_rejects_shapes_over_its_limits(dev, dims):
+    """Wider than 512, fewer than two layers, more than 128 classes, more
+    than 8 layers: the launch is refused, nothing falls back."""
+    n = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    x = torch.zeros(2, 56, device=dev)
+    with pytest.raises(RuntimeError, match='speech_dnn: CUDA error'):
+        speech_kernels.speech_dnn(x, torch.zeros(n, device=dev), dims)
 
 
 @pytest.mark.cuda

@@ -91,6 +91,50 @@ def test_mel_runs_cover_every_nonzero():
     assert (hi - lo).sum() < mel.size / 30      # banded: the kernel's win
 
 
+def test_mel_taps_reproduce_dense_filterbank():
+    """The kernel's table of nonzero taps, scattered back, is the dense
+    Slaney filterbank bit for bit; every bin lies in at most one segment
+    (so in at most two mels), the two mels of a bin are neighbours, and
+    what pads the table is zero. An empty filter would get no tap."""
+    from mec_tpu_torch.ops import filters
+    taps, runs = speech_kernels.mel_taps()
+    mel = filters.mel_filterbank(22050, 2048, 128)
+    assert taps.dtype == np.float32 and runs.dtype == np.int32
+    assert taps.size % 4 == 0 and runs.shape == (3, 128)
+    assert np.array_equal(speech_kernels.dense_from_taps(taps, runs), mel)
+    first, end, off = runs
+    covered = np.zeros(1025, int)
+    used = np.zeros(taps.size // 2, bool)
+    for s in range(128):
+        covered[first[s]:end[s]] += 1
+        at = off[s] + 32 * np.arange(end[s] - first[s])
+        assert not used[at].any()                 # no two bins share a pair
+        used[at] = True
+    assert covered.max() == 1
+    assert (np.count_nonzero(mel, axis=0) <= 2).all()
+    assert not taps.reshape(-1, 2)[~used].any()   # the padding is zeros
+    for m in np.nonzero(~mel.any(axis=1))[0]:     # empty filters: no taps
+        assert not speech_kernels.dense_from_taps(taps, runs)[m].any()
+    # a lane's four segments (l, l + 32, ...) lie in four different blocks
+    assert (off % 32 == np.arange(128) % 32).all()
+
+
+@pytest.mark.parametrize('B', [1, 2, 4, 5, 8, 13, 32, 33, 64])
+def test_frame_split_covers_every_frame_once(B):
+    """K1's geometry: `split` blocks a clip, block r the frames
+    [r * 130 / split, (r + 1) * 130 / split), its 13 warps taking the
+    frames w, w + 13, ... of the block."""
+    split = speech_kernels.frame_split(B)
+    assert 1 <= split <= 16 and 130 % split == 0
+    per = 130 // split
+    seen = np.zeros(130, int)
+    for rank in range(split):
+        for warp in range(13):
+            for t in range(warp, per, 13):
+                seen[rank * per + t] += 1
+    assert (seen == 1).all()
+
+
 # ----------------------------------------------------------------------
 # K2 tuning_select
 # ----------------------------------------------------------------------
@@ -217,6 +261,38 @@ def test_speech_dnn_matches_pallas_full_width(tree):
     np.testing.assert_allclose(got[:, 7:71], ref[:, 7:71], atol=2e-5)
     assert np.all(got[:, 71:] == 0)
     np.testing.assert_allclose(got[:, :7].sum(axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize('B', [1, 8, 9, 32, 33, 64])
+def test_dnn_grid_covers_every_row_once(B):
+    """K4's geometry: a cluster of DNN_CLUSTER blocks per tile of rows;
+    in a tile the block of rank r writes the rows i with
+    i % DNN_CLUSTER == r."""
+    rows, tiles = speech_kernels.dnn_grid(B)
+    assert rows == speech_kernels.DNN_ROWS and (tiles - 1) * rows < B <= tiles * rows
+    seen = np.zeros(B, int)
+    for tile in range(tiles):
+        n = min(rows, B - tile * rows)
+        for rank in range(speech_kernels.DNN_CLUSTER):
+            for i in range(rank, n, speech_kernels.DNN_CLUSTER):
+                seen[tile * rows + i] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize('which', ['full', 'narrow'])
+def test_make_speech_dnn_caches_dims(tree, which):
+    """The ctypes widths are built once, in make_speech_dnn, match the
+    tree, and every call looks the same object up."""
+    from mec_tpu_torch.bench.kernel_ab import NARROW, narrow_tree
+    variables, want = ((tree, (56, 512, 512, 256, 128, 64, 7))
+                       if which == 'full' else (narrow_tree(), NARROW))
+    fwd = speech_kernels.make_speech_dnn(variables, 'cpu')
+    assert fwd.dims == want and list(fwd.c_dims) == list(want)
+    assert speech_kernels._c_dims(fwd.dims) is fwd.c_dims
+    n = sum(a * b + b for a, b in zip(want, want[1:]))
+    assert fwd.params.shape == (n,)
+    out = fwd(torch.zeros(3, 56))
+    assert out.shape == (3, 128) and bool((out[:, 7 + want[-2]:] == 0).all())
 
 
 def test_speech_dnn_module_matches_flax_and_folded(tree):
