@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""K1 (mfcc_mean), K4 (speech_dnn), K5 (dft_power) and K7 (layer1_int8)
-on one NVIDIA GPU: build report, checks against the plain versions, and
-times, optionally in turns with an older build of the sources.
+"""K1 (mfcc_mean), K2 (tuning_select), K3 (rolloff_bins), K4
+(speech_dnn), K5 (dft_power) and K7 (layer1_int8) on one NVIDIA GPU:
+build report, checks against the plain versions, and times, optionally
+in turns with an older build of the sources.
 
-    python3 -m mec_tpu_torch.bench.kernel_ab [--kernels k1,k4,k5,k7]
+    python3 -m mec_tpu_torch.bench.kernel_ab [--kernels k1,k2,k3,k4,k5,k7]
         [--old-csrc DIR] [--reps N] [--profile] [--split] [--variants]
-        [--trace]
+        [--trace] [--bert-drift]
 
 * build: what ptxas reports for the sources (registers, spills, shared
   memory) and, where the toolkit has cuobjdump, how many tensor-core
@@ -18,13 +19,20 @@ times, optionally in turns with an older build of the sources.
   algebra in fp64. K4: B in {1, 8, 9, 32, 33,
   64} at full width and with a narrow network (56-32-16-7): probs 2e-6,
   penult 2e-5, zeros past the packed values.
+* check, K2: B in {1, 8, 32, 33} of silence, tones, chirps and noise, a
+  noise-only batch, the silent clip alone, and made-up rows in which
+  every slot is a candidate (with and without tied magnitudes):
+  torch.equal against the plain version, and two runs torch.equal. K3:
+  B in {1, 8, 32, 33} and an all-zero row: bins equal to the plain
+  version's except one-bin steps at near-ties (the f64 prefix within
+  F * 2**-24 of the threshold).
 * check: K5 at B*T in {1, 130, 131, 4160} in both precisions against the
   plain version (mag atol 5e-5, P relative 5e-3, the JAX package's
   contract) and, for reference, both against fp64 sums of the same
   operands;
   K7 torch.equal against the plain version at B in {1, 2, 32} and an odd
   map.
-* time: CUDA-event medians at B = 32 (and B = 1; K1 and K4 also B = 8).
+* time: CUDA-event medians at B = 32 (and B = 1; K1 to K4 also B = 8).
   With --old-csrc, a directory that holds earlier sources (for example
   `git show <commit>:mec_tpu_torch/csrc/dft_power.cu`), those found
   there are built into libraries of their own and timed in turns old,
@@ -32,13 +40,26 @@ times, optionally in turns with an older build of the sources.
   interface of the first version of these kernels (one fp32 table
   layout for K5; six scratch maps for K7); an older mfcc_mean.cu and
   speech_dnn.cu the one-block-a-clip and 8-row-tile interface (dense
-  mel table with lo/hi runs; dims, n_layers, B). --profile adds the
+  mel table with lo/hi runs; dims, n_layers, B); an older
+  tuning_select.cu and rolloff_bins.cu the one-block-a-clip and
+  two-pass interface (no cluster size, no rows a block). --profile adds the
   device time of each launch (torch.profiler), for the old K1 and K4
   too. --variants times K4 at cluster sizes 8 and 16 (at 8 a 512-wide
   layer's slice outgrows its shared-memory slot and takes the scalar
-  path) and K1 at 5, 10 and 13 blocks a clip, through the C interface.
+  path), K1 at 5, 10 and 13 blocks a clip, K2 at 1, 2, 4 and 8 blocks
+  a clip and K3 at 1, 2, 4 and 8 rows a block, through the C interface.
+* --bert-drift (alone; no kernel is built): where the int8-static BERT
+  on the card leaves the same model on the CPU (full-width synthetic
+  BERT-base, the card's static scales on both). Free run: after the
+  embeddings and each of the 12 layers the largest difference of the
+  hidden state, and for every QuantDense of a layer whether its int8
+  operand (the quantized activation that torch._int_mm takes) is
+  bit-equal on both devices, and if not, how many codes differ. Same
+  input: each stage of each layer computed on the card from the CPU
+  run's operands, which names the operations whose results differ
+  between the devices on identical inputs.
 
-* --trace: K1 and K4 built alone with -DMEC_TRACE (csrc/trace.cuh): the
+* --trace: K1, K2 and K4 built alone with -DMEC_TRACE (csrc/trace.cuh): the
   clocks one block spends between the phase marks of its source, at
   B = 1 and 32 (thread 0 of block 0, clock64; the fifth launch).
 
@@ -62,7 +83,9 @@ from mec_tpu_torch.convert.from_jax import image_state_from_jax
 from mec_tpu_torch.models.resnet import Bottleneck
 from mec_tpu_torch.ops import _build, dft_kernel, resnet_kernel
 from mec_tpu_torch.ops import audio_features as af
+from mec_tpu_torch.ops import rolloff_kernel as rk
 from mec_tpu_torch.ops import speech_kernels as sk
+from mec_tpu_torch.ops import tuning_kernel as tk
 from mec_tpu_torch.serving.synthetic_artifacts import (layer1_quant_params,
                                                        speech_variables)
 
@@ -104,7 +127,8 @@ def layer1_blocks(dev, seed=0):
     return blocks
 
 
-SOURCES = {'k1': 'mfcc_mean.cu', 'k4': 'speech_dnn.cu',
+SOURCES = {'k1': 'mfcc_mean.cu', 'k2': 'tuning_select.cu',
+           'k3': 'rolloff_bins.cu', 'k4': 'speech_dnn.cu',
            'k5': 'dft_power.cu', 'k7': 'layer1_int8.cu'}
 
 
@@ -130,13 +154,14 @@ def build_report(kernels):
         if 'Function :' in line:
             name = line.split('Function :')[1].strip()
         for op in ('HMMA', 'IMMA', 'HGMMA', 'IGMMA', 'IDP.4A', 'IDP4A',
-                   'LDGSTS', 'UCGABAR'):
+                   'LDGSTS', 'UCGABAR', 'MATCH'):
             if name and f' {op}' in line:
                 counts.setdefault(name, {}).setdefault(op, 0)
                 counts[name][op] += 1
     for name, ops in counts.items():
         if any(tag in name for tag in ('dft_power', 'conv', 'mfcc_mean',
-                                       'speech_dnn')):
+                                       'speech_dnn', 'tuning_select',
+                                       'rolloff_bins')):
             print(f'sass: {name[:100]}: {ops}')
 
 
@@ -166,7 +191,34 @@ def old_library(csrc, kernels):
         lib.mec_mfcc_mean.argtypes = [P, I, I, I, P, P, P, P, P, P]
     if 'k4' in have:
         lib.mec_speech_dnn.argtypes = [P, P, ctypes.POINTER(I), I, I, P, P]
+    if 'k2' in have:
+        lib.mec_tuning_select.argtypes = [P, P, P, I, I, P, P, P, P]
+    if 'k3' in have:
+        lib.mec_rolloff_bins.argtypes = [P, I, I, ctypes.c_float, P, P]
     return lib, have
+
+
+def old_tuning(lib, mags, residual, pitches):
+    """The one-block-a-clip K2 (32 bisection probes over all K keys)."""
+    B, K = mags.shape
+    best = torch.empty(B, dtype=torch.int32, device=mags.device)
+    has = torch.empty(B, dtype=torch.bool, device=mags.device)
+    err = lib.mec_tuning_select(
+        mags.data_ptr(), residual.data_ptr(), pitches.data_ptr(), B, K,
+        tk._edges(mags.device).data_ptr(), best.data_ptr(), has.data_ptr(),
+        _build.stream(mags.device))
+    assert err == 0, err
+    return best, has
+
+
+def old_rolloff(lib, rows):
+    """The two-pass K3 (the row read twice, a scan a 32-bin chunk)."""
+    out = torch.empty(rows.shape[0], dtype=torch.int32, device=rows.device)
+    err = lib.mec_rolloff_bins(rows.data_ptr(), rows.shape[0], rows.shape[1],
+                               0.85, out.data_ptr(),
+                               _build.stream(rows.device))
+    assert err == 0, err
+    return out
 
 
 def old_mfcc(lib, P):
@@ -194,12 +246,10 @@ def old_dnn(lib, x, fwd):
     return out
 
 
-def power_of(B, dev, seed=0):
-    """(B, 130, 1025) power spectrograms of seeded clips: silence at row
-    0, and from B = 2 on a clip whose only sound is one loud frame (row
-    1: the clip's max lives in one block's frames), then tones, chirps
-    and noise."""
-    rng = np.random.RandomState(seed)
+def clips_of(B, dev, rng, noise_only=False):
+    """(B, 66150) seeded clips on dev: silence at row 0, then tones,
+    chirps and noise, each over a noise floor; noise_only: noise at B
+    loudnesses."""
     n = 66150
     t = np.arange(n) / 22050.0
     rows = [np.zeros(n)]
@@ -212,8 +262,29 @@ def power_of(B, dev, seed=0):
         else:
             y = 0.02 * i * rng.randn(n)
         rows.append(y + 0.01 * rng.randn(n))
-    y = torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
-    P = af.hop_spectrograms(y)[1].contiguous()
+    if noise_only:
+        rows = [0.01 * (i + 1) * rng.randn(n) for i in range(B)]
+    return torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
+
+
+def frontend_inputs(B, dev, seed=0, noise_only=False, of=None):
+    """K2's and K3's inputs as the hop-slab frontend makes them from
+    clips_of: ((mags, residual, pitches), each (B, 23270); the (B * 130,
+    1025) magnitude rows). of: make that many clips and keep the last B
+    (no silent clip among them: K2's work depends on its data)."""
+    y = clips_of(of or B, dev, np.random.RandomState(seed), noise_only)[-B:]
+    mag, P = af.hop_spectrograms(y)
+    mags, pitches = af.tuning_candidates(P)
+    return ((mags, af.fold_residual(pitches), pitches),
+            mag.reshape(-1, mag.shape[-1]).contiguous())
+
+
+def power_of(B, dev, seed=0):
+    """(B, 130, 1025) power spectrograms of clips_of's clips, and from
+    B = 2 on row 1 a clip whose only sound is one loud frame (the clip's
+    max lives in one block's frames)."""
+    rng = np.random.RandomState(seed)
+    P = af.hop_spectrograms(clips_of(B, dev, rng))[1].contiguous()
     if B >= 2:
         P[1] = 1e-12
         P[1, 77] = torch.from_numpy(
@@ -266,6 +337,51 @@ def check_speech(dev, kernels):
                   f'{(k - ref).abs().max().item():.3e}, plain '
                   f'{(p - ref).abs().max().item():.3e} '
                   f'{"ok" if good else "FAIL"}')
+    if 'k2' in kernels:
+        K = 130 * 179
+        gen = torch.Generator(device=dev).manual_seed(0)
+        every = torch.rand(2, K, device=dev, generator=gen) + 0.5
+        tied = torch.floor(torch.rand(2, K, device=dev, generator=gen) * 4)
+        spread = torch.rand(2, K, device=dev, generator=gen) - 0.5
+        cases = [(f'B={B:2d}', frontend_inputs(B, dev, seed=B)[0])
+                 for B in (1, 8, 32, 33)]
+        cases += [('noise-only B=8', frontend_inputs(8, dev, 1, True)[0]),
+                  ('silent clip', frontend_inputs(1, dev)[0]),
+                  ('every slot a candidate', (every, spread, every)),
+                  ('every slot, tied magnitudes', (tied + 1, spread, every))]
+        for what, (mags, residual, pitches) in cases:
+            kb, kh = tk.tuning_select(mags, residual, pitches)
+            kb2, kh2 = tk.tuning_select(mags, residual, pitches)
+            pb, ph = tk.tuning_select_plain(mags, residual, pitches)
+            torch.cuda.synchronize()
+            good = (torch.equal(kb, pb) and torch.equal(kh, ph)
+                    and torch.equal(kb, kb2) and torch.equal(kh, kh2))
+            ok &= good
+            share = (pitches > 0).float().mean().item()
+            print(f'K2 {what}: a cluster of {tk.cluster_split(mags.shape[0])}'
+                  f' blocks a clip, {share:.3f} of the slots are candidates, '
+                  f'{int(kh.sum())}/{mags.shape[0]} clips select; bit-exact '
+                  f'and two runs equal: {"ok" if good else "FAIL"}')
+    if 'k3' in kernels:
+        for B in (1, 8, 32, 33):
+            rows = frontend_inputs(B, dev, seed=B)[1]
+            rows = torch.cat([rows, torch.zeros_like(rows[:1])])
+            k, p = rk.rolloff_bins(rows), rk.rolloff_bins_plain(rows)
+            torch.cuda.synchronize()
+            bad = torch.nonzero(k != p).flatten().tolist()
+            good = k[-1].item() == 0
+            for r in bad:
+                cum = torch.cumsum(rows[r].double(), 0)
+                lo_bin = min(k[r].item(), p[r].item())
+                tie = abs(cum[lo_bin].item() - 0.85 * cum[-1].item())
+                good &= (abs(k[r].item() - p[r].item()) == 1 and tie
+                         <= rows.shape[1] * 2.0 ** -24 * cum[-1].item())
+            ok &= good
+            print(f'K3 B={B:2d}: {rk.rows_per_block(rows.shape[0])} rows a '
+                  f'block, {len(bad)} of {rows.shape[0]} '
+                  f'rows differ from the plain version, each a one-bin '
+                  f'near-tie; the all-zero row gives bin {k[-1].item()}: '
+                  f'{"ok" if good else "FAIL"}')
     if 'k4' in kernels:
         for what, tree in (('full', speech_variables(seed=2)),
                            ('narrow', narrow_tree())):
@@ -291,25 +407,39 @@ def check_speech(dev, kernels):
 
 def device_us(fn, reps):
     """Median device time (us) of a call of fn(): the summed durations of
-    its device launches in a torch.profiler window of reps calls."""
+    its device launches in a torch.profiler window of reps calls. The
+    profiler now and then loses launches of a window: such a window is
+    taken again, once, and if that one is short too the time is put
+    together by kernel name (the median duration of each name times its
+    launches a call)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(2):
         torch.cuda.synchronize()
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
-    n = len(kern) // reps
-    if n == 0:
-        sys.exit(f'kernel_ab: {len(kern)} device launches in {reps} calls')
-    return statistics.median(
-        sum(e.time_range.elapsed_us() for e in kern[i:i + n])
-        for i in range(0, n * reps, n))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        n = len(kern) // reps
+        if n and len(kern) == n * reps:
+            return statistics.median(
+                sum(e.time_range.elapsed_us() for e in kern[i:i + n])
+                for i in range(0, n * reps, n))
+        print(f'kernel_ab: {len(kern)} device launches in {reps} calls'
+              + (', profiling again' if attempt == 0 else
+                 ', timing by kernel name'))
+    if len(kern) <= reps // 2:
+        sys.exit('kernel_ab: the profiler lost most launches, twice')
+    by_name = {}
+    for e in kern:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(max(1, round(len(d) / reps)) * statistics.median(d)
+               for d in by_name.values())
 
 
 def time_speech(dev, kernels, old, old_have, args, card):
@@ -318,10 +448,17 @@ def time_speech(dev, kernels, old, old_have, args, card):
         P = power_of(B, dev)
         x = torch.from_numpy(np.random.RandomState(B).randn(B, 56)
                              .astype(np.float32)).to(dev)
+        sel, rows = frontend_inputs(B, dev, of=32)
         cases = []
         if 'k1' in kernels:
             cases.append(('K1', 'k1', lambda: sk.mfcc_mean(P),
                           lambda: old_mfcc(old, P)))
+        if 'k2' in kernels:
+            cases.append(('K2', 'k2', lambda: tk.tuning_select(*sel),
+                          lambda: old_tuning(old, *sel)))
+        if 'k3' in kernels:
+            cases.append(('K3', 'k3', lambda: rk.rolloff_bins(rows),
+                          lambda: old_rolloff(old, rows)))
         if 'k4' in kernels:
             cases.append(('K4', 'k4', lambda: fwd(x),
                           lambda: old_dnn(old, x, fwd)))
@@ -352,6 +489,12 @@ K4_MARKS = (['ask for every copy', 'cluster.sync (all blocks run)']
                 'wait for weights', 'products + fold', 'slabs, bias, ReLU',
                 'exchange', 'cluster.sync')]
             + ['wait for weights', 'output layer, softmax, rows'])
+K2_MARKS = (['stream the slice, keep and count the candidates',
+             'gather in block 0 (split barrier, copies, cluster.sync)',
+             'scan the top-digit counts, pick', 'the bin to the short list']
+            + [f'round {r}: digit histogram, scan, pick' for r in range(2)]
+            + ['count <= lower middle, next key',
+               'selection, bin histogram, argmax'])
 K1_MARKS = ['ask for copies, tables land', 'frames: copy, mel, dB',
             'block max, tell the cluster, cluster.sync',
             'clip max, clamped time sums', 'cluster.sync',
@@ -363,7 +506,8 @@ def trace_phases(dev, kernels, card):
     the marks of the last of five launches."""
     P_, I = ctypes.c_void_p, ctypes.c_int
     fwd = sk.make_speech_dnn(speech_variables(seed=2), dev)
-    for key, marks in (('k1', K1_MARKS), ('k4', K4_MARKS)):
+    tk._lib()
+    for key, marks in (('k1', K1_MARKS), ('k2', K2_MARKS), ('k4', K4_MARKS)):
         if key not in kernels:
             continue
         out = Path(tempfile.mkdtemp(prefix='kernel_ab_')) / 'libtrace.so'
@@ -388,6 +532,20 @@ def trace_phases(dev, kernels, card):
                         taps.data_ptr(), n_taps, runs.data_ptr(),
                         dct.data_ptr(), sk.frame_split(B), res.data_ptr(),
                         _build.stream(dev))
+            elif key == 'k2':
+                # block 0 is clip 0's: a noise clip, many candidates
+                lib.mec_tuning_select.argtypes = tk._lib().mec_tuning_select.argtypes
+                sel = frontend_inputs(B, dev, noise_only=True)[0]
+                best = torch.empty(B, dtype=torch.int32, device=dev)
+                has = torch.empty(B, dtype=torch.bool, device=dev)
+                print(f'trace K2 B={B}: clip 0 has '
+                      f'{int((sel[2][0] > 0).sum())} candidates')
+
+                def launch():
+                    return lib.mec_tuning_select(
+                        *(t.data_ptr() for t in sel), B, sel[0].shape[1],
+                        tk.cluster_split(B), tk._edges(dev).data_ptr(),
+                        best.data_ptr(), has.data_ptr(), _build.stream(dev))
             else:
                 lib.mec_speech_dnn.argtypes = sk._lib_dnn().mec_speech_dnn.argtypes
                 x = torch.randn(B, 56, device=dev)
@@ -419,9 +577,52 @@ def variant_times(dev, kernels, reps, card):
     """K4 at other cluster sizes and K1 at other frame splits, through
     the C interface (device time; a refused launch is reported)."""
     lib = _build.library()
-    sk._lib_mfcc(), sk._lib_dnn()
+    sk._lib_mfcc(), sk._lib_dnn(), tk._lib(), rk._lib()
     fwd = sk.make_speech_dnn(speech_variables(seed=2), dev)
-    for B in (32, 1):
+    for B in (32, 8, 1):
+        (mags, residual, pitches), rows = frontend_inputs(B, dev, of=32)
+        if 'k2' in kernels:
+            best = torch.empty(B, dtype=torch.int32, device=dev)
+            has = torch.empty(B, dtype=torch.bool, device=dev)
+            want = tk.tuning_select_plain(mags, residual, pitches)
+            for split in (1, 2, 4, 8):
+                def run():
+                    return lib.mec_tuning_select(
+                        mags.data_ptr(), residual.data_ptr(),
+                        pitches.data_ptr(), B, mags.shape[1], split,
+                        tk._edges(dev).data_ptr(), best.data_ptr(),
+                        has.data_ptr(), _build.stream(dev))
+                err = run()
+                if err:
+                    print(f'variant K2 B={B} split {split}: launch refused, '
+                          f'CUDA error {err}')
+                    continue
+                same = torch.equal(best, want[0]) and torch.equal(has, want[1])
+
+                def run_checked():
+                    assert run() == 0, 'a launch failed in the timed window'
+                print(f'variant K2 B={B} split {split}: '
+                      f'{device_us(run_checked, reps):.1f} us on the device, '
+                      f'{"bit-exact" if same else "WRONG"} ({card})')
+        if 'k3' in kernels:
+            out = torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
+            want = rk.rolloff_bins(rows)
+            for warps in (1, 2, 4, 8):
+                def run():
+                    return lib.mec_rolloff_bins(
+                        rows.data_ptr(), rows.shape[0], rows.shape[1], 0.85,
+                        warps, out.data_ptr(), _build.stream(dev))
+                err = run()
+                if err:
+                    print(f'variant K3 B={B} rows a block {warps}: launch '
+                          f'refused, CUDA error {err}')
+                    continue
+                same = torch.equal(out, want)
+                print(f'variant K3 B={B} rows a block {warps}: '
+                      f'{device_us(run, reps):.1f} us on the device, '
+                      f'{"same bins" if same else "WRONG"} ({card})')
+        if B == 8:
+            continue
         if 'k4' in kernels:
             x = torch.from_numpy(np.random.RandomState(B).randn(B, 56)
                                  .astype(np.float32)).to(dev)
@@ -538,10 +739,164 @@ def split_times(dev, reps):
               f'the loop')
 
 
+DRIFT_TEXTS = ['i am so happy today', 'this is terrible and sad',
+               'wow what a surprise', 'i feel angry about all of this',
+               'the day was calm', 'i hate this awful news',
+               'really not great', 'yes i love it and you']
+DRIFT_STAGES = ('query', 'key', 'value', 'scores', 'softmax', 'context',
+                'attention_output', 'attention_norm', 'intermediate', 'gelu',
+                'output', 'output_norm')
+
+
+def bert_layer_stages(layer, h, bias, forced=None):
+    """models.bert.BertLayer.forward, stage by stage: {stage: its
+    output}. With `forced` (another run's stages), every stage after the
+    first computes on that run's values instead of its own, so each
+    output shows what this device makes of the very same input."""
+    import torch.nn.functional as F
+    out = {}
+
+    def keep(name, value):
+        out[name] = value
+        return value if forced is None else forced[name].to(value.device)
+
+    att = layer.attention_self
+    B, L, H = h.shape
+
+    def split(t):
+        return t.reshape(B, L, att.heads, H // att.heads).transpose(1, 2)
+
+    q = keep('query', att.query(h))
+    k = keep('key', att.key(h))
+    v = keep('value', att.value(h))
+    scores = keep('scores', (split(q) @ split(k).transpose(-1, -2))
+                  / att.scale + bias[:, None, None, :])
+    probs = keep('softmax', torch.softmax(scores.float(), dim=-1)
+                 .to(att.dtype))
+    ctx = keep('context', (probs @ split(v)).transpose(1, 2).reshape(B, L, H))
+    ao = keep('attention_output', layer.attention_output(ctx))
+    h1 = keep('attention_norm', layer.attention_norm(h + ao))
+    inter = keep('intermediate', layer.intermediate(h1))
+    act = keep('gelu', F.gelu(inter, approximate=layer.gelu))
+    o = keep('output', layer.output(act))
+    keep('output_norm', layer.output_norm(h1 + o))
+    return out
+
+
+def _gap(a, b):
+    """Largest |a - b| over the entries where either is finite (the
+    masked scores are -inf on both)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    d = (a - b).abs()
+    return float(torch.where(a == b, torch.zeros_like(d), d).max())
+
+
+def bert_drift(dev, card):
+    """Where the int8-static BERT on the card leaves the same model on
+    the CPU. Free run: both models on the same ids, the hidden state
+    compared after the embeddings and after every layer, and the int8
+    codes that each QuantDense hands to torch._int_mm compared code by
+    code. Same-input run: every stage of every layer is given the CPU
+    run's input on the card, so a nonzero gap names an operation whose
+    result differs between the devices on identical operands."""
+    from mec_tpu_torch.models.qconv import QuantDense
+    from mec_tpu_torch.ops.quant import extract_static_scales
+    from mec_tpu_torch.serving.engine import EmotionEngine
+    from mec_tpu_torch.serving.synthetic_artifacts import (bert_variables,
+                                                           make_vocab)
+    kwargs = dict(vocab_size=30522, hidden_size=768, num_layers=12,
+                  num_heads=12, intermediate_size=3072, max_position=512,
+                  type_vocab_size=2, num_classes=7)
+    trees = dict(bert_variables=bert_variables(seed=0), bert_kwargs=kwargs,
+                 bert_vocab=make_vocab(), compute_dtype='bfloat16')
+    on_card = EmotionEngine(device='cuda', **trees)
+    scales = {on_card._bert_scales_key():
+              extract_static_scales(on_card.bert['variables'])}
+    on_cpu = EmotionEngine(device='cpu', bert_meta={'int8_scales': scales},
+                           **trees)
+    assert on_card._bert_quant_mode == on_cpu._bert_quant_mode == 'static'
+    ids, mask = on_card._text_wire(DRIFT_TEXTS, 8)
+    models = {'card': on_card.bert['model'], 'cpu': on_cpu.bert['model']}
+    free, codes, packed = {}, {}, {}
+    for where, model in models.items():
+        hidden, ops, hooks = {}, {}, []
+        for name, mod in model.named_modules():
+            if name == 'embeddings_norm' or name.startswith('layer_') \
+                    and '.' not in name:
+                hooks.append(mod.register_forward_hook(
+                    lambda m, i, o, name=name: hidden.__setitem__(name, o)))
+            if isinstance(mod, QuantDense):
+                hooks.append(mod.register_forward_hook(
+                    lambda m, i, o, name=name: ops.__setitem__(
+                        name, torch.clamp(torch.round(
+                            i[0].float() / m.act_scale), -127, 127
+                        ).to(torch.int8).cpu())))
+        eng = on_card if where == 'card' else on_cpu
+        with torch.inference_mode():
+            packed[where] = eng._text_forward(
+                *eng._to_device((ids, mask))).float().cpu()
+        for hook in hooks:
+            hook.remove()
+        free[where], codes[where] = hidden, ops
+    print(f'bert-drift: BERT-base 12 x 768, bf16 int8 static, the card\'s '
+          f'scales on both, {len(DRIFT_TEXTS)} texts x {ids.shape[1]} tokens '
+          f'({card} against this host\'s CPU)')
+    print(f'bert-drift free run: after the embeddings max|dh| '
+          f'{_gap(free["card"]["embeddings_norm"], free["cpu"]["embeddings_norm"]):.4g}')
+    for i in range(kwargs['num_layers']):
+        name = f'layer_{i}'
+        diff = []
+        for op in ('attention_self.query', 'attention_self.key',
+                   'attention_self.value', 'attention_output', 'intermediate',
+                   'output'):
+            a, b = codes['card'][f'{name}.{op}'], codes['cpu'][f'{name}.{op}']
+            n_bad = int((a != b).sum())
+            diff.append(f'{op.split(".")[-1]} '
+                        + ('equal' if n_bad == 0 else
+                           f'{n_bad}/{a.numel()} differ (max '
+                           f'{int((a.int() - b.int()).abs().max())})'))
+        print(f'bert-drift free run: after {name} max|dh| '
+              f'{_gap(free["card"][name], free["cpu"][name]):.4g}; int8 '
+              f'operands: ' + ', '.join(diff))
+    probs = {w: packed[w][:, :7] for w in packed}
+    print(f'bert-drift free run: probabilities max|d| '
+          f'{_gap(probs["card"], probs["cpu"]):.4g}, CLS max|d| '
+          f'{_gap(packed["card"][:, 7:], packed["cpu"][:, 7:]):.4g}, '
+          f'decisions equal: '
+          f'{bool((probs["card"].argmax(1) == probs["cpu"].argmax(1)).all())}')
+    # every stage on the card from the CPU run's operands
+    worst = {stage: 0.0 for stage in DRIFT_STAGES}
+    with torch.inference_mode():
+        bias = {w: ((1.0 - torch.from_numpy(mask).to(m.neg.device).float())
+                    * m.neg).to(m.dtype) for w, m in models.items()}
+        for i in range(kwargs['num_layers']):
+            h_in = free['cpu']['embeddings_norm' if i == 0
+                               else f'layer_{i - 1}']
+            ref = bert_layer_stages(getattr(models['cpu'], f'layer_{i}'),
+                                    h_in, bias['cpu'])
+            got = bert_layer_stages(getattr(models['card'], f'layer_{i}'),
+                                    h_in.to(dev), bias['card'], forced=ref)
+            gaps = {stage: _gap(got[stage], ref[stage])
+                    for stage in DRIFT_STAGES}
+            for stage, g in gaps.items():
+                worst[stage] = max(worst[stage], g)
+            print(f'bert-drift same input: layer_{i} '
+                  + ', '.join(f'{stage} {g:.3g}' for stage, g in gaps.items()
+                              if g > 0.0)
+                  + ('' if any(gaps.values()) else 'every stage bit-equal'))
+    exact = [s_ for s_, g in worst.items() if g == 0.0]
+    print('bert-drift same input: bit-equal on both devices in every layer: '
+          + (', '.join(exact) or 'no stage')
+          + '; differing: ' + (', '.join(
+              f'{s_} (max {g:.3g})' for s_, g in worst.items() if g > 0.0)
+              or 'none'))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--kernels', default='k1,k4,k5,k7',
-                    help='which of k1,k4,k5,k7 to report, check and time')
+    ap.add_argument('--kernels', default='k1,k2,k3,k4,k5,k7',
+                    help='which of k1,k2,k3,k4,k5,k7 to report, check and '
+                    'time')
     ap.add_argument('--old-csrc', help='directory with earlier sources of '
                     'these kernels to time in turns')
     ap.add_argument('--reps', type=int, default=30)
@@ -549,10 +904,14 @@ def main():
                     'line in the contraction length (loop against epilogue)')
     ap.add_argument('--profile', action='store_true', help='device time '
                     'of each launch (torch.profiler)')
-    ap.add_argument('--variants', action='store_true', help='K4 at other '
-                    'cluster sizes, K1 at other frame splits')
+    ap.add_argument('--variants', action='store_true', help='K4 and K2 at '
+                    'other cluster sizes, K1 at other frame splits, K3 at '
+                    'other rows a block')
     ap.add_argument('--trace', action='store_true', help='clocks between '
-                    "the phase marks of K1's and K4's sources")
+                    "the phase marks of K1's, K2's and K4's sources")
+    ap.add_argument('--bert-drift', action='store_true', help='only this: '
+                    'where the int8-static BERT on the card leaves the same '
+                    'model on the CPU, layer by layer and stage by stage')
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(',') if k]
     if not kernels or set(kernels) - set(SOURCES):
@@ -564,6 +923,10 @@ def main():
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(f'card: {card} | torch {torch.__version__}')
+    if args.bert_drift:
+        bert_drift(dev, card)
+        print('kernel_ab: ok')
+        return
     build_report(kernels)
     ok = check_speech(dev, kernels)
 

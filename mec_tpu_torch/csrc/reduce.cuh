@@ -3,10 +3,14 @@
 // block_* reduce across the whole block and return the result to EVERY
 // thread. They begin with a barrier, so one scratch array can serve
 // back-to-back calls, and the caller must reach them with all threads.
-// Integer sums are exact, so their order does not matter; float min/max
-// are exact too.
+// Every warp folds the warps' partial results itself, one load a lane
+// and a shuffle fold: a loop over them is a chain of shared-memory
+// latencies, a thousand clocks for 32 warps.
+// Integer sums are exact, so their order does not matter; float and
+// integer min/max are exact too.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace mec {
 
@@ -25,15 +29,18 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t warp_min(uint32_t v) {
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // scratch: at least blockDim.x / 32 entries of shared memory
 __device__ __forceinline__ int block_sum(int v, int* scratch) {
   v = warp_sum(v);
   __syncthreads();
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
-  int s = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
-  return s;
+  return warp_sum((threadIdx.x & 31) < (blockDim.x >> 5) ? scratch[threadIdx.x & 31] : 0);
 }
 
 __device__ __forceinline__ float block_max(float v, float* scratch) {
@@ -41,9 +48,7 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   __syncthreads();
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
-  float m = scratch[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, scratch[w]);
-  return m;
+  return warp_max((threadIdx.x & 31) < (blockDim.x >> 5) ? scratch[threadIdx.x & 31] : scratch[0]);
 }
 
 __device__ __forceinline__ float block_min(float v, float* scratch) {
@@ -51,9 +56,15 @@ __device__ __forceinline__ float block_min(float v, float* scratch) {
   __syncthreads();
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
-  float m = scratch[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fminf(m, scratch[w]);
-  return m;
+  return warp_min((threadIdx.x & 31) < (blockDim.x >> 5) ? scratch[threadIdx.x & 31] : scratch[0]);
+}
+
+__device__ __forceinline__ uint32_t block_min(uint32_t v, uint32_t* scratch) {
+  v = warp_min(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return warp_min((threadIdx.x & 31) < (blockDim.x >> 5) ? scratch[threadIdx.x & 31] : scratch[0]);
 }
 
 }  // namespace mec

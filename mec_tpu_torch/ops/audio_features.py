@@ -1,25 +1,30 @@
-"""The 56-dim speech frontend, serving branches, in torch.
+"""The 56-dim speech frontend in torch: the serving branches and the
+fp32 parity graph.
 
-Port of mec_tpu/ops/audio_features.py::audio_features_56 as the speech
-serving graph runs it, with the rolloff crossing search (:753-759):
+Port of mec_tpu/ops/audio_features.py::audio_features_56:
 
     features[b] = concat(mfcc_mean[40], chroma_mean[12],
                          [zcr, spectral_centroid, spectral_rolloff, rms])
 
-Two spectrogram branches, chosen by the DFT precision: the hop-slab
-branch ('high', :723-734) and the framed branch ('highest' or 'bf16',
-:735-743), whose windowed frames go through the DFT kernel (K5).
-librosa 0.10 semantics throughout (n_fft 2048, hop 512, periodic Hann,
-center=True with zero padding; see the original's module docstring).
-Plain tensor work stays in torch: the two hop-DFT products are fp32
-torch.matmul, as the JAX package leaves them to XLA, and so is the
-chroma product. The per-clip kernels of the path go through their
-wrappers: dft_spectrograms (K5, framed branch), mfcc_mean (K1),
-tuning_select (K2), rolloff_bins (K3); on a CPU tensor each runs its
-plain version.
+Three spectrogram branches, chosen by `precision`. The two serving
+branches (bf16 mode) are the hop-slab branch ('high', :723-734) and the
+framed branch ('highest' or 'bf16', :735-743), whose windowed frames go
+through the DFT kernel (K5); both take the MFCC kernel (K1) and the
+rolloff crossing search (K3). The parity branch ('parity', :744-748, what
+the reference runs with use_pallas=False in fp32 mode) is the rFFT STFT,
+the mel and DCT products as two fp32 matmuls, the framed zcr and rms,
+and the rolloff from the chunked cumulative sum. librosa 0.10 semantics
+throughout (n_fft 2048, hop 512, periodic Hann, center=True with zero
+padding; see the original's module docstring). Plain tensor work stays
+in torch: the hop-DFT, mel, DCT, chroma and cumsum products are fp32
+torch.matmul, as the JAX package leaves them to XLA. The per-clip
+kernels go through their wrappers: dft_spectrograms (K5, framed
+branch), mfcc_mean (K1), tuning_select (K2, every branch: the reference
+takes its tuning kernel on the device whatever the branch),
+rolloff_bins (K3); on a CPU tensor each runs its plain version.
 
-`spectral_features_4` is the speech heuristic's input and uses the
-plain rFFT STFT; it is a fallback, not the serving path.
+`spectral_features_4` is the speech heuristic's input: the rFFT STFT
+and the cumsum rolloff; it is a fallback, not the serving path.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.ops import filters
 from mec_tpu_torch.ops.dft_kernel import PRECISIONS, dft_spectrograms
-from mec_tpu_torch.ops.rolloff_kernel import rolloff_bins, rolloff_bins_plain
+from mec_tpu_torch.ops.rolloff_kernel import rolloff_bins
 from mec_tpu_torch.ops.speech_kernels import mfcc_mean
 from mec_tpu_torch.ops.tuning_kernel import tuning_select
 
@@ -41,11 +46,14 @@ SR = Config.SAMPLE_RATE          # 22050
 N_SAMPLES = Config.AUDIO_SAMPLES  # 66150
 N_FFT = Config.N_FFT              # 2048
 HOP = Config.HOP_LENGTH           # 512
+N_MELS = Config.N_MELS            # 128
+N_MFCC = Config.N_MFCC            # 40
 N_CHROMA = 12
 N_BINS = 1 + N_FFT // 2           # 1025
 N_FRAMES = 1 + N_SAMPLES // HOP   # 130 (center=True framing)
 
 _TINY32 = float(np.finfo(np.float32).tiny)
+_BIG32 = float(np.finfo(np.float32).max)
 
 _HOP_RATIO = N_FFT // HOP                       # 4
 _HOP_TOTAL = (N_FRAMES - 1) * HOP + N_FFT      # samples covering all frames
@@ -77,6 +85,8 @@ def _consts(device: torch.device):
                                                 N_CHROMA).astype(np.float32),
         'nearest': np.linspace(-0.5, 0.5, 101).astype(np.float32),
         'hann': filters.hann_window(N_FFT),
+        'mel': filters.mel_filterbank(SR, N_FFT, N_MELS),        # (M, F)
+        'dct': filters.dct_matrix(N_MFCC, N_MELS),               # (C, M)
     }
     return {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for name, a in tables.items()}
@@ -129,6 +139,33 @@ def frame_signal(y: torch.Tensor, edge: bool) -> torch.Tensor:
                      dim=-1)
 
 
+def stft_spectrograms(y: torch.Tensor):
+    """One rFFT pass -> (magnitude, power), each (B, 130, 1025): the parity
+    graph's spectrogram. The power is the square of the rounded fp32
+    magnitude, as in the reference, not re^2 + im^2."""
+    frames = frame_signal(y, edge=False) * _consts(y.device)['hann']
+    mag = torch.fft.rfft(frames, dim=-1).abs().to(torch.float32)
+    return mag, mag * mag
+
+
+def power_to_db(S: torch.Tensor, top_db: float = 80.0, amin: float = 1e-10
+                ) -> torch.Tensor:
+    """librosa.power_to_db with ref=1.0; the max is taken per clip (over
+    every axis but the first)."""
+    log_spec = 10.0 * torch.log10(torch.clamp_min(S, amin))
+    per_clip_max = log_spec.amax(dim=tuple(range(1, S.dim())), keepdim=True)
+    return torch.maximum(log_spec, per_clip_max - top_db)
+
+
+def mfcc_mean_from_power(P: torch.Tensor) -> torch.Tensor:
+    """(B, T, F) power spectrogram -> (B, 40) time-averaged MFCCs by two
+    fp32 matmuls (mel, then DCT per frame): the parity graph's MFCC stage;
+    the serving branches run the fused kernel mfcc_mean (K1)."""
+    c = _consts(P.device)
+    mel_db = power_to_db(P @ c['mel'].T)
+    return (mel_db @ c['dct'].T).mean(dim=1)
+
+
 def zcr_mean(y: torch.Tensor, threshold: float = 1e-10) -> torch.Tensor:
     """zero_crossing_rate mean over edge-padded frames (the first slot of
     each frame never counts, as zero_crossings' pad=True)."""
@@ -161,6 +198,37 @@ def rms_mean_hops(y: torch.Tensor) -> torch.Tensor:
     e = (hc * hc).sum(dim=-1)                                # (B, H)
     fe = sum(e[:, i:i + N_FRAMES] for i in range(_HOP_RATIO))
     return torch.sqrt(fe / N_FFT).mean(dim=-1)
+
+
+def piptrack_candidates(P: torch.Tensor, fmin: float = PIP_FMIN,
+                        fmax: float = PIP_FMAX,
+                        threshold: float = PIP_THRESHOLD):
+    """Parabolic-interpolated pitch candidates at full width
+    (audio_features.piptrack_candidates, librosa.piptrack's defaults):
+    (pitches, mags, mask), each (B, T, F); non-candidates have pitch =
+    mag = 0. The reference implementation that the band-limited
+    tuning_candidates is tested against."""
+    S = P
+    avg_core = 0.5 * (S[..., 2:] - S[..., :-2])
+    denom = 2.0 * S[..., 1:-1] - S[..., 2:] - S[..., :-2]
+    shift_core = avg_core / (denom + (denom.abs() < _TINY32).to(denom.dtype))
+    avg = torch.nn.functional.pad(avg_core, (1, 1))
+    shift = torch.nn.functional.pad(shift_core, (1, 1))
+    dskew = 0.5 * avg * shift
+    freqs = _consts(P.device)['freqs']
+    freq_mask = (freqs >= max(fmin, 0.0)) & (freqs < min(fmax, SR / 2.0))
+    ref_value = threshold * S.amax(dim=-1, keepdim=True)      # per frame
+    masked = S * (S > ref_value).to(S.dtype)
+    # localmax with edge padding: the first bin compares against itself
+    # (False), the last bin's right neighbour is itself (>= holds)
+    left = torch.cat([masked[..., :1], masked[..., :-1]], dim=-1)
+    right = torch.cat([masked[..., 1:], masked[..., -1:]], dim=-1)
+    mask = (masked > left) & (masked >= right) & freq_mask
+    bin_idx = torch.arange(S.shape[-1], dtype=torch.float32, device=P.device)
+    # librosa multiplies by sr before dividing by n_fft; keep that order
+    pitches = torch.where(mask, (bin_idx + shift) * float(SR) / N_FFT, 0.0)
+    mags = torch.where(mask, S + dskew, 0.0)
+    return pitches, mags, mask
 
 
 def tuning_candidates(P: torch.Tensor):
@@ -261,15 +329,50 @@ def spectral_centroid_mean(mag: torch.Tensor) -> torch.Tensor:
     return (freqs * norm).sum(dim=-1).mean(dim=-1)
 
 
-def spectral_rolloff_mean(mag: torch.Tensor,
-                          roll_percent: float = 0.85) -> torch.Tensor:
-    """Mean rolloff frequency from the crossing bins (K3). Exact bin -> Hz
-    map: (SR/2)/(F-1) = 11025 * 2**-10 and k * 11025 < 2**24 are both
-    f32-representable, so k * step == fft_frequencies[k] bitwise."""
-    B, T, F = mag.shape
-    bins = rolloff_bins(mag.reshape(B * T, F), roll_percent).reshape(B, T)
-    step = np.float32(SR / 2.0 / (F - 1))
-    return (bins.to(torch.float32) * float(step)).mean(dim=-1)
+def _cumsum_chunked(x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Cumulative sum along the last axis with the reference's grouping
+    (audio_features._cumsum_chunked): the axis zero-padded to a multiple
+    of `chunk` (1025 -> 1280; the pad is part of the grouping), a
+    triangular product for the prefixes within each chunk, a second
+    small one for the exclusive prefixes of the chunk totals, and their
+    sum. torch.cumsum would add the same terms in another grouping, so a
+    near-tie at the rolloff threshold would fall differently more often."""
+    F = x.shape[-1]
+    pad = (-F) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    n_chunks = (F + pad) // chunk
+    xr = x.reshape(x.shape[:-1] + (n_chunks, chunk))
+    # U[i, j] = 1 iff i <= j: within[.., c, j] = sum_{i<=j} xr[.., c, i]
+    ones = torch.ones(chunk, chunk, dtype=x.dtype, device=x.device)
+    within = xr @ torch.triu(ones)                     # (.., n_chunks, chunk)
+    totals = within[..., -1]                           # (.., n_chunks)
+    prefix = totals @ torch.triu(ones[:n_chunks, :n_chunks], diagonal=1)
+    return (within + prefix[..., None]).reshape(x.shape)[..., :F]
+
+
+def spectral_rolloff_mean(mag: torch.Tensor, roll_percent: float = 0.85,
+                          use_kernel: bool = False) -> torch.Tensor:
+    """Mean rolloff frequency (the lowest bin reaching 85% of the frame's
+    magnitude), (B,).
+
+    Default (the parity graph, audio_features.py:629-636): the chunked
+    cumulative sum, the lowest frequency whose prefix reaches the
+    threshold. use_kernel=True (the bf16 serving branches, the
+    reference's use_pallas): the crossing bins from K3. Exact bin -> Hz
+    map there: (SR/2)/(F-1) = 11025 * 2**-10 and k * 11025 < 2**24 are
+    both f32-representable, so k * step == fft_frequencies[k] bitwise.
+    The two sum in different orders, so a bin can differ on a near-tie:
+    the parity graph never takes the kernel."""
+    if use_kernel:
+        B, T, F = mag.shape
+        bins = rolloff_bins(mag.reshape(B * T, F), roll_percent).reshape(B, T)
+        step = np.float32(SR / 2.0 / (F - 1))
+        return (bins.to(torch.float32) * float(step)).mean(dim=-1)
+    cum = _cumsum_chunked(mag)
+    hit = cum >= roll_percent * cum[..., -1:]
+    freqs = _consts(mag.device)['freqs']
+    return torch.where(hit, freqs, _BIG32).amin(dim=-1).mean(dim=-1)
 
 
 def audio_features_56(y: torch.Tensor, precision: Optional[str] = None
@@ -280,7 +383,11 @@ def audio_features_56(y: torch.Tensor, precision: Optional[str] = None
     precision (None reads Config.DFT_PRECISION): 'high' takes the
     hop-slab frontend; 'highest' or 'bf16' the framed frontend, whose
     Hann-windowed frames go through K5 at that precision, with zcr and
-    rms from the frames (audio_features.py:735-743)."""
+    rms from the frames (audio_features.py:735-743); 'parity' the fp32
+    reference graph (:744-748, the reference's use_pallas=False): rFFT
+    STFT, the MFCC by two matmuls, framed zcr and rms, the cumsum
+    rolloff. K1 and K3 are serving kernels and are not in the parity
+    graph; the tuning selection (K2) is in every branch."""
     precision = Config.DFT_PRECISION if precision is None else precision
     if y.dim() == 1:
         y = y[None, :]
@@ -291,26 +398,27 @@ def audio_features_56(y: torch.Tensor, precision: Optional[str] = None
         frames = frame_signal(y, edge=False) * _consts(y.device)['hann']
         mag, P = dft_spectrograms(frames, precision)
         zcr, rms = zcr_mean(y), rms_mean(y)
+    elif precision == 'parity':
+        mag, P = stft_spectrograms(y)
+        zcr, rms = zcr_mean(y), rms_mean(y)
     else:
         raise ValueError(f'DFT precision {precision!r}: expected high, '
-                         'highest or bf16')
-    mfcc = mfcc_mean(P)
+                         'highest, bf16 or parity')
+    serving = precision != 'parity'
+    mfcc = mfcc_mean(P) if serving else mfcc_mean_from_power(P)
     chroma = chroma_mean_from_power(P)
     spectral = torch.stack([zcr, spectral_centroid_mean(mag),
-                            spectral_rolloff_mean(mag), rms], dim=-1)
+                            spectral_rolloff_mean(mag, use_kernel=serving),
+                            rms], dim=-1)
     return torch.cat([mfcc, chroma, spectral], dim=-1)
 
 
 def spectral_features_4(y: torch.Tensor) -> torch.Tensor:
-    """[zcr, centroid, rolloff, rms], (B, 4), from the plain rFFT STFT: the
-    heuristic fallback's input (audio_features.spectral_features_4)."""
+    """[zcr, centroid, rolloff, rms], (B, 4), from the rFFT STFT and the
+    cumsum rolloff: the heuristic fallback's input
+    (audio_features.spectral_features_4)."""
     if y.dim() == 1:
         y = y[None, :]
-    frames = frame_signal(y, edge=False) * _consts(y.device)['hann']
-    mag = torch.fft.rfft(frames, dim=-1).abs().to(torch.float32)
-    B, T, F = mag.shape
-    bins = rolloff_bins_plain(mag.reshape(B * T, F)).reshape(B, T)
-    rolloff = (bins.to(torch.float32) * float(np.float32(SR / 2.0 / (F - 1)))
-               ).mean(dim=-1)
+    mag, _P = stft_spectrograms(y)
     return torch.stack([zcr_mean(y), spectral_centroid_mean(mag),
-                        rolloff, rms_mean(y)], dim=-1)
+                        spectral_rolloff_mean(mag), rms_mean(y)], dim=-1)

@@ -11,6 +11,12 @@ reference.
 The wrapper runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, or raises; `tuning_select.launches` counts
 kernel launches.
+
+The kernel launches one thread block cluster per clip: `cluster_split(B)`
+blocks each stream a slice of the row (`slot_slices`) and keep only the
+candidates, block 0 gathers them and selects. The geometry and the
+shared-memory budget behind MAX_K are computed here, handed to the C
+interface, and pinned by the CPU tests.
 """
 
 from __future__ import annotations
@@ -26,9 +32,17 @@ from mec_tpu_torch.ops import _build
 
 N_HIST_BINS = 100
 _BIG = float(np.finfo(np.float32).max)
-# the kernel keeps a row's order keys in shared memory (4 B each); the
-# H100 grants a block 227 KB, less the kernel's own ~2 KB
-MAX_K = 56_000
+# Every block of the cluster holds room for all K slots' order keys and
+# residuals (8 B a slot: block 0 gathers the candidates, and at worst
+# every slot is one). The H100 grants a block 227 KB of shared memory;
+# the kernel's own arrays (the 4096-bin digit histogram, the short list
+# of 2048 keys, the bin histogram, edges, scratch) take at most
+# STATIC_SMEM_BYTES of it.
+SMEM_LIMIT_BYTES = 232_448
+STATIC_SMEM_BYTES = 26_112
+SLOT_BYTES = 8
+MAX_K = 25_000
+MAX_SPLIT = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,9 +68,33 @@ def _edges(device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.library()
-    lib.mec_tuning_select.argtypes = [_P, _P, _P, _I, _I, _P, _P, _P, _P]
+    lib.mec_tuning_select.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
     lib.mec_tuning_select.restype = _I
     return lib
+
+
+def cluster_split(B: int) -> int:
+    """Blocks a clip (the cluster's size): the most of 8, 4, 2 or 1 that
+    still puts every cluster of a batch of B on the card at once. A block
+    holds the whole row's slots in shared memory, so an SM runs one
+    block: 8 blocks a clip up to 16 clips, 4 up to 33 (batch 32 fills
+    128 of the 132 SMs), 2 up to 66."""
+    for split in (8, 4, 2):
+        if B * split <= _build.SM_COUNT:
+            return split
+    return 1
+
+
+def slot_slices(K: int, split: int):
+    """[begin, end) of the slots that the block of each rank streams:
+    equal slices of ceil(K / split), the last ones shorter or empty."""
+    size = -(-K // split)
+    return [(min(r * size, K), min((r + 1) * size, K)) for r in range(split)]
+
+
+def smem_bytes(K: int) -> int:
+    """Shared memory a block of the kernel needs for a row of K slots."""
+    return SLOT_BYTES * K + STATIC_SMEM_BYTES
 
 
 def _order_keys(values: torch.Tensor) -> torch.Tensor:
@@ -122,7 +160,8 @@ def tuning_select(mags: torch.Tensor, residual: torch.Tensor,
     """(B, K) float32 candidates -> (best_bin (B,) int32, has_any (B,) bool).
 
     Candidates with pitch 0 are masked out; residuals are the folded
-    log2 residuals in [-0.5, 0.5), computed by the caller."""
+    log2 residuals in [-0.5, 0.5), computed by the caller; magnitudes
+    are finite."""
     if mags.dim() != 2 or residual.shape != mags.shape \
             or pitches.shape != mags.shape:
         raise ValueError('tuning_select: mags, residual, pitches must share '
@@ -136,12 +175,14 @@ def tuning_select(mags: torch.Tensor, residual: torch.Tensor,
     B, K = mags.shape
     if K > MAX_K:
         raise ValueError(f'tuning_select: K={K} exceeds the kernel\'s '
-                         f'shared-memory row of {MAX_K} candidates')
+                         f'shared-memory row of {MAX_K} candidates '
+                         f'({smem_bytes(K)} of {SMEM_LIMIT_BYTES} bytes)')
     best = torch.empty(B, dtype=torch.int32, device=mags.device)
     has = torch.empty(B, dtype=torch.bool, device=mags.device)
     err = _lib().mec_tuning_select(
         mags.data_ptr(), residual.data_ptr(), pitches.data_ptr(), B, K,
-        _edges(mags.device).data_ptr(), best.data_ptr(), has.data_ptr(),
+        cluster_split(B), _edges(mags.device).data_ptr(), best.data_ptr(),
+        has.data_ptr(),
         _build.stream(mags.device))
     _build.check_error(err, 'tuning_select')
     _build.count_launch(tuning_select)

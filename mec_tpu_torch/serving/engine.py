@@ -5,10 +5,13 @@ app (`create_app(engine=...)`) and the micro-batcher drive it unchanged:
 
   speech: waveforms -> wire (bf16: packed 12-bit PCM, or PCM16 with
     MEC_WIRE_COMPRESS=0; fp32: float32 samples) -> device -> 56-dim
-    frontend (hop-slab, or in bf16 with MEC_DFT_PRECISION=highest|bf16
-    the framed frontend on K5; K1 mfcc_mean, K2 tuning_select, K3
-    rolloff_bins) -> standardize -> fused speech DNN (K4) -> packed
-    [probs | penult]
+    frontend -> standardize -> speech DNN -> packed [probs | penult].
+    bf16 serving graph: the hop-slab frontend, or with
+    MEC_DFT_PRECISION=highest|bf16 the framed one on K5; K1 mfcc_mean,
+    K2 tuning_select, K3 rolloff_bins; the fused BN-folded DNN (K4).
+    fp32 parity graph, the reference's (its engine turns the Pallas
+    path off in fp32): rFFT STFT, MFCC by two matmuls, K2, the cumsum
+    rolloff, and the plain SpeechDNN with live BatchNorm
   text: texts -> WordPiece ids/mask (host) sliced to a sequence bucket
     -> BERT (bf16: tanh GELU, int8 encoder matmuls with static scales;
     fp32: erf GELU) -> packed [probs | CLS]
@@ -53,12 +56,15 @@ import torch
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.convert.from_jax import (bert_state_from_jax,
                                             fusion_state_from_jax,
-                                            image_state_from_jax)
+                                            image_state_from_jax,
+                                            speech_state_from_jax,
+                                            speech_widths)
 from mec_tpu_torch.image.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
                                             load_image_uint8)
 from mec_tpu_torch.models.bert import BertForSequenceClassification
 from mec_tpu_torch.models.fusion import MultiModalFusionModel
 from mec_tpu_torch.models.resnet import ImageEmotionModel
+from mec_tpu_torch.models.speech_dnn import SpeechDNN
 from mec_tpu_torch.ops import audio_features as af
 from mec_tpu_torch.ops import wav
 from mec_tpu_torch.ops.dft_kernel import PRECISIONS
@@ -145,6 +151,28 @@ def _not_ported(item: str):
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
+def make_parity_speech_dnn(variables: Dict, device):
+    """The plain SpeechDNN with live BatchNorm over the Flax tree, on
+    `device`: fn(x (B, 56)) -> (B, 7 + 64) [probs | penult], with
+    .n_classes and .penult_dim like the fused kernel's forward
+    (ops.speech_kernels.make_speech_dnn), which the bf16 graph takes."""
+    p = variables['params']
+    widths = speech_widths(variables)
+    model = SpeechDNN(in_dim=int(np.shape(p['dense_0']['kernel'])[0]),
+                      num_classes=int(np.shape(p['dense_out']['kernel'])[1]),
+                      widths=widths)
+    model.load_state_dict(speech_state_from_jax(variables))
+    model = model.to(device).eval().requires_grad_(False)
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat(model(x), dim=-1)
+
+    forward.n_classes = model.out.out_features
+    forward.penult_dim = widths[-1]
+    forward.model = model
+    return forward
+
+
 class EmotionEngine:
     """Owns the speech, text, image and fusion parameters on one device
     and serves batches."""
@@ -179,8 +207,11 @@ class EmotionEngine:
         without vocab.txt) and bert_meta ('int8_scales').
         fusion_variables ({'params'} MultiModalFusionModel) and
         fusion_config (its dims). compute_dtype: 'bfloat16' (serving
-        mode) or 'float32' (parity mode); None reads
-        Config.COMPUTE_DTYPE. device: 'cpu' or 'cuda[:n]', never
+        mode: compressed wires, the hand-written kernels, folded BN,
+        int8) or 'float32' (parity mode: the reference's fp32 graph,
+        whose speech leg is the rFFT frontend of
+        audio_features_56(precision='parity') and the live-BN
+        SpeechDNN); None reads Config.COMPUTE_DTYPE. device: 'cpu' or 'cuda[:n]', never
         guessed."""
         self.device = torch.device(device)
         if self.device.type == 'cuda':
@@ -197,13 +228,14 @@ class EmotionEngine:
             _not_ported('7 (the random-forest fusion, MEC_FUSION_MODE=rf)')
         self.compute_dtype = _DTYPES[name]
         self._dtype_name = name
-        # the speech frontend's DFT, fixed at load as the JAX engine fixes
-        # it at trace time: Config.DFT_PRECISION in bf16 serving mode; fp32
-        # parity mode runs the hop-slab frontend in fp32 whatever it says
+        # the speech frontend, fixed at load as the JAX engine fixes it at
+        # trace time: Config.DFT_PRECISION in bf16 serving mode; fp32
+        # parity mode runs the reference's parity graph (rFFT STFT, cumsum
+        # rolloff) whatever it says
         self._dft_precision = (Config.DFT_PRECISION
                                if self.compute_dtype == torch.bfloat16
-                               else 'high')
-        if self._dft_precision not in ('high',) + PRECISIONS:
+                               else 'parity')
+        if self._dft_precision not in ('high', 'parity') + PRECISIONS:
             raise ValueError(f'MEC_DFT_PRECISION {self._dft_precision!r}: '
                              'expected high, highest or bf16')
         self.speech: Optional[Dict[str, Any]] = None
@@ -221,8 +253,10 @@ class EmotionEngine:
             mean, scale = (torch.from_numpy(np.asarray(a, np.float32)
                                             .reshape(N_FEATURES))
                            .to(self.device) for a in scaler)
-            self.speech = {'dnn': make_speech_dnn(speech_variables,
-                                                  self.device),
+            make_dnn = (make_speech_dnn
+                        if self.compute_dtype == torch.bfloat16
+                        else make_parity_speech_dnn)
+            self.speech = {'dnn': make_dnn(speech_variables, self.device),
                            'scaler': (mean, scale)}
         self._image_size = tuple(Config.IMAGE_SIZE)
         self._image_folded = self._image_quant = False
@@ -302,7 +336,8 @@ class EmotionEngine:
     def _speech_forward(self, wire_dev: Tuple[torch.Tensor, ...]
                         ) -> torch.Tensor:
         """Device step: wire -> (bucket, 7 + 64) [probs | penult], the
-        frontend at self._dft_precision."""
+        frontend at self._dft_precision and the DNN of the mode (bf16:
+        the fused kernel's packed row; fp32: the live-BN module)."""
         if len(wire_dev) == 2:
             waves = wire.decode_pcm12(*wire_dev)
         elif wire_dev[0].dtype == torch.int16:

@@ -6,7 +6,7 @@ imports no jax, so it runs on the card's machine (which has none):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (--noconftest: tests/conftest.py configures jax.) Inputs are the serving
-path's shapes at B=1 and B=32 (the two cluster kernels K1 and K4 at more
+path's shapes at B=1 and B=32 (the four speech kernels K1 to K4 at more
 sizes: the middle bucket, tile edges and ragged tails), made from a
 numpy seed. Tolerances, each
 with its reason: K1 |k - p| <= 1e-4 + 2e-6|p| (summation order and
@@ -103,24 +103,68 @@ def test_mfcc_mean_kernel_on_an_offset_view(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B', [1, 32])
+@pytest.mark.parametrize('B', [1, 8, 32, 33])
 def test_tuning_select_kernel(dev, B):
+    """One cluster a clip (8 blocks at B <= 16, 4 at 32 and 33; the last
+    block of a cluster streams a shorter slice). Block 0 gathers the
+    kept pairs in whatever order the blocks arrive, and two runs still
+    give the same bits."""
     _mag, P = _spectra(B, dev)
     mags, pitches = af.tuning_candidates(P)
     residual = af.fold_residual(pitches)
+    before = tuning_kernel.tuning_select.launches
+    kb, kh = tuning_kernel.tuning_select(mags, residual, pitches)
+    kb2, kh2 = tuning_kernel.tuning_select(mags, residual, pitches)
+    pb, ph = tuning_kernel.tuning_select_plain(mags, residual, pitches)
+    assert tuning_kernel.tuning_select.launches == before + 2
+    assert torch.equal(kb, pb) and torch.equal(kh, ph)
+    assert torch.equal(kb, kb2) and torch.equal(kh, kh2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['noise', 'silence', 'every_slot', 'tied',
+                                  'signed_zero', 'odd_K'])
+def test_tuning_select_kernel_where_its_work_depends_on_the_data(dev, case):
+    """Noise (four slots in ten are candidates), silence (none), every
+    slot a candidate, a few tied magnitudes (the median's bin outgrows
+    the short list, so the radix rounds read every key), magnitudes of
+    both zeros, and a K no cluster divides."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    K = 130 * 179
+    if case in ('noise', 'silence'):
+        scale = 0.05 if case == 'noise' else 0.0
+        y = scale * torch.randn(4, N, device=dev, generator=gen)
+        mags, pitches = af.tuning_candidates(af.hop_spectrograms(y)[1])
+        residual = af.fold_residual(pitches)
+    else:
+        if case == 'odd_K':
+            K = 4099
+        pitches = torch.rand(3, K, device=dev, generator=gen) + 0.5
+        residual = torch.rand(3, K, device=dev, generator=gen) - 0.5
+        mags = torch.rand(3, K, device=dev, generator=gen) + 0.5
+        if case == 'tied':
+            mags = torch.floor(mags * 4)
+        if case == 'signed_zero':
+            mags = torch.where(mags > 1.0, 0.0, -0.0) * torch.ones_like(mags)
+        if case == 'odd_K':
+            pitches = pitches * (pitches > 0.8)          # some slots empty
     kb, kh = tuning_kernel.tuning_select(mags, residual, pitches)
     pb, ph = tuning_kernel.tuning_select_plain(mags, residual, pitches)
     assert torch.equal(kb, pb) and torch.equal(kh, ph)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B', [1, 32])
+@pytest.mark.parametrize('B', [1, 8, 32, 33])
 def test_rolloff_bins_kernel(dev, B):
+    """A warp a row; with the all-zero row appended the row count is odd
+    against every block size, so the last block is ragged."""
     mag, _P = _spectra(B, dev)
     rows = torch.cat([mag.reshape(-1, 1025),
                       torch.zeros(1, 1025, device=dev)])
+    before = rolloff_kernel.rolloff_bins.launches
     k = rolloff_kernel.rolloff_bins(rows)
     p = rolloff_kernel.rolloff_bins_plain(rows)
+    assert rolloff_kernel.rolloff_bins.launches == before + 1
     assert k[-1].item() == 0
     for r in torch.nonzero(k != p).flatten().tolist():
         cum = torch.cumsum(rows[r].double(), 0)
@@ -128,6 +172,29 @@ def test_rolloff_bins_kernel(dev, B):
         assert abs(k[r].item() - p[r].item()) == 1
         assert abs(cum[lo].item() - 0.85 * cum[-1].item()) \
             <= 1025 * 2.0 ** -24 * cum[-1].item()   # f32 sum rounding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset,F', [(1, 1025), (2, 1025), (3, 1025),
+                                      (0, 1024), (1, 7), (0, 33)])
+def test_rolloff_bins_kernel_on_offset_rows_and_other_widths(dev, offset, F):
+    """Rows that start off a 16-byte boundary (a view into a larger
+    buffer) and widths with other tails: the kernel aligns its wide
+    copies itself; against the f64 prefix, bins equal or a one-bin
+    near-tie."""
+    R = 37
+    gen = torch.Generator(device=dev).manual_seed(F + offset)
+    base = torch.rand(R * F + offset, device=dev, generator=gen)
+    rows = base[offset:].view(R, F)
+    assert rows.data_ptr() % 16 == 4 * offset
+    k = rolloff_kernel.rolloff_bins(rows)
+    cum = torch.cumsum(rows.double(), dim=-1)
+    want = (cum >= 0.85 * cum[:, -1:]).float().argmax(dim=-1).to(torch.int32)
+    assert int((k - want).abs().max()) <= 1
+    for r in torch.nonzero(k != want).flatten().tolist():
+        lo = min(k[r].item(), want[r].item())
+        assert abs(cum[r, lo].item() - 0.85 * cum[r, -1].item()) \
+            <= F * 2.0 ** -24 * cum[r, -1].item()
 
 
 @pytest.mark.cuda
@@ -178,14 +245,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.cuda
-def test_engine_on_cuda_matches_cpu(dev):
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_engine_on_cuda_matches_cpu(dev, dtype):
+    """fp32: the parity graph (rFFT, cumsum rolloff, live-BN SpeechDNN),
+    K2 alone on the card. bf16: the serving graph, K1-K4 once a
+    dispatch. The speech leg is fp32 arithmetic in both modes, so the
+    card and the CPU differ by summation orders alone."""
     waves = _waves(5, seed=3)
     tree = speech_variables(seed=1)
-    feats = af.audio_features_56(torch.from_numpy(_waves(32))).numpy()
+    feats = af.audio_features_56(torch.from_numpy(_waves(32)), 'high').numpy()
     scaler = (feats.mean(axis=0), feats.std(axis=0) + 1e-3)   # standardize
-    cuda_engine = EmotionEngine(tree, scaler, device='cuda')
-    cpu_engine = EmotionEngine(tree, scaler, device='cpu')
+    cuda_engine = EmotionEngine(tree, scaler, compute_dtype=dtype,
+                                device='cuda')
+    cpu_engine = EmotionEngine(tree, scaler, compute_dtype=dtype,
+                               device='cpu')
+    wrappers = (speech_kernels.mfcc_mean, tuning_kernel.tuning_select,
+                rolloff_kernel.rolloff_bins, speech_kernels.speech_dnn)
+    before = [w.launches for w in wrappers]
     got = cuda_engine.predict_speech_waves(waves, want_features=True)
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert launched == ([0, 1, 0, 0] if dtype == 'float32' else [1, 1, 1, 1])
     ref = cpu_engine.predict_speech_waves(waves, want_features=True)
     for g, r in zip(got, ref):
         assert g['emotion'] == r['emotion']

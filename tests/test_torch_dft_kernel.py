@@ -202,7 +202,8 @@ def test_frontend_precision_dispatch(monkeypatch):
 def test_engine_fixes_dft_precision_at_load(monkeypatch):
     """A bf16 engine takes Config.DFT_PRECISION when it is built (as the
     JAX engine at trace time) and its speech step runs that frontend; an
-    fp32 engine keeps the hop-slab frontend; a bad value raises at load."""
+    fp32 engine takes the parity graph whatever the name says; a bad
+    value raises at load of a bf16 engine only."""
     from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
     from mec_tpu_torch.serving.engine import EmotionEngine
     from mec_tpu_torch.serving.synthetic_artifacts import speech_variables
@@ -212,7 +213,7 @@ def test_engine_fixes_dft_precision_at_load(monkeypatch):
     bf16 = EmotionEngine(tree, None, compute_dtype='bfloat16', device='cpu')
     fp32 = EmotionEngine(tree, None, compute_dtype='float32', device='cpu')
     monkeypatch.setattr(Config, 'DFT_PRECISION', 'high')
-    assert (bf16._dft_precision, fp32._dft_precision) == ('highest', 'high')
+    assert (bf16._dft_precision, fp32._dft_precision) == ('highest', 'parity')
     wire = bf16._to_device(bf16._wire_waves(waves, 2))
     assert len(wire) == 2                          # the pcm12 wire
     got = bf16._speech_forward(wire)

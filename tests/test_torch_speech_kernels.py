@@ -196,6 +196,155 @@ def test_tuning_select_silence_and_ties():
     assert best[1] == np.searchsorted(edges, -0.205, side='right') - 1
 
 
+@pytest.mark.parametrize('B', [1, 2, 8, 16, 17, 32, 33, 34, 66, 67, 128])
+def test_cluster_split_fills_the_card_and_no_more(B):
+    """K2's geometry: the largest of 8, 4, 2 blocks a clip whose clusters
+    all fit the card's SMs at once (a block holds a whole row's slots, so
+    an SM runs one block); one block a clip beyond that."""
+    from mec_tpu_torch.ops import _build
+    split = tuning_kernel.cluster_split(B)
+    assert split in (1, 2, 4, 8) and split <= tuning_kernel.MAX_SPLIT
+    assert split == 1 or B * split <= _build.SM_COUNT
+    assert split == 8 or B * split * 2 > _build.SM_COUNT
+    assert tuning_kernel.cluster_split(32) == 4      # 128 of the 132 SMs
+    assert tuning_kernel.cluster_split(1) == 8
+
+
+@pytest.mark.parametrize('split', [1, 2, 4, 8])
+@pytest.mark.parametrize('K', [23270, 4099, 7, 1])
+def test_slot_slices_cover_every_slot_once(K, split):
+    """Each block of a cluster streams one slice of the row: together
+    every slot once, in order, the last ones shorter or empty."""
+    slices = tuning_kernel.slot_slices(K, split)
+    assert len(slices) == split
+    seen = np.zeros(K, int)
+    for lo, hi in slices:
+        assert 0 <= lo <= hi <= K
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    sizes = [hi - lo for lo, hi in slices]
+    assert sizes == sorted(sizes, reverse=True) and sizes[0] == -(-K // split)
+
+
+def _kernel_constants(source):
+    """constexpr ints of a kernel source, by name."""
+    import re
+    from mec_tpu_torch.ops import _build
+    text = (_build.CSRC / source).read_text()
+    return {m[1]: int(m[2]) for m in
+            re.finditer(r'constexpr int (k\w+) = (\d+);', text)}, text
+
+
+def test_tuning_shared_memory_budget():
+    """MAX_K is what fits: all K slots' keys and residual bins (8 bytes a
+    slot, every slot a candidate at worst) beside the kernel's own
+    arrays, read from the source: the top-digit histogram, the short
+    list, the bin histogram and its edges, per-warp scratch."""
+    c, text = _kernel_constants('tuning_select.cu')
+    assert c['kThreads'] == 1024 and c['kMaxSplit'] == tuning_kernel.MAX_SPLIT
+    assert c['kBins'] == tuning_kernel.N_HIST_BINS
+    assert c['kTopBits'] + 2 * c['kLowBits'] == 32   # the rounds cover a key
+    warps = c['kThreads'] // 32
+    own = 4 * ((1 << c['kTopBits']) + c['kShort'] + 2 * warps + 3
+               + (c['kBins'] + 1) + c['kBins'] + 3)
+    assert own <= tuning_kernel.STATIC_SMEM_BYTES
+    assert '2 * K * (int)sizeof(uint32_t)' in text   # SLOT_BYTES a slot
+    assert tuning_kernel.smem_bytes(tuning_kernel.MAX_K) \
+        <= tuning_kernel.SMEM_LIMIT_BYTES
+    assert tuning_kernel.smem_bytes(tuning_kernel.MAX_K + 1000) \
+        > tuning_kernel.SMEM_LIMIT_BYTES             # and not far below it
+    assert tuning_kernel.MAX_K >= 130 * 179          # the serving row fits
+    big = torch.ones(1, tuning_kernel.MAX_K + 1)
+    tuning_kernel.tuning_select(big, big, big)       # the CPU twin has no limit
+
+
+def _radix_median_keys(mags, top_bits=12, low_bits=10, short=2048):
+    """The kernel's route to the lower and upper middle of the candidate
+    magnitudes, in numpy: order keys (-0 as +0), the top digit from a
+    histogram, that bin on a short list (or every key when it outgrows
+    the list), two rounds of low digits, then the next larger key from
+    the list or, failing that, from all keys."""
+    u = mags.astype(np.float32).view(np.uint32).astype(np.int64)
+    u[u == 0x80000000] = 0
+    keys = np.where(u & 0x80000000, 0xFFFFFFFF - u, u | 0x80000000)
+    n = len(keys)
+    lo_t, hi_t = (n - 1) // 2, n // 2
+    shift = 32 - top_bits
+    hist = np.bincount(keys >> shift, minlength=1 << top_bits)
+    below = np.cumsum(hist) - hist
+    d = int(np.nonzero((below <= lo_t) & (lo_t < below + hist))[0][0])
+    listed = hist[d] <= short
+    pool = keys[(keys >> shift) == d] if listed else keys
+    prefix, fixed, target = d << shift, ((1 << top_bits) - 1) << shift, \
+        lo_t - int(below[d])
+    for sh in (low_bits, 0):
+        match = pool[(pool & fixed) == prefix]
+        h = np.bincount((match >> sh) & ((1 << low_bits) - 1),
+                        minlength=1 << low_bits)
+        b = np.cumsum(h) - h
+        dd = int(np.nonzero((b <= target) & (target < b + h))[0][0])
+        prefix |= dd << sh
+        fixed |= ((1 << low_bits) - 1) << sh
+        target -= int(b[dd])
+    k_lo = prefix
+    cnt_le = int((pool <= k_lo).sum()) + (int(below[d]) if listed else 0)
+    k_hi = k_lo
+    if cnt_le < hi_t + 1:
+        above = pool[pool > k_lo]
+        if not len(above):
+            above = keys[keys > k_lo]
+        k_hi = int(above.min())
+    return k_lo, k_hi
+
+
+@pytest.mark.parametrize('case', ['spread', 'octave', 'tied', 'pairs',
+                                  'signed_zero', 'one', 'two', 'negative'])
+def test_radix_digits_pin_the_bisection_medians(case):
+    """The kernel's radix route (12 + 10 + 10 bits, short list, next key)
+    gives the plain version's lower and upper middle on magnitudes that
+    stress it: many exponents, one octave, four tied values (the bin
+    outgrows the list), every value twice (the upper middle is the lower
+    one), both zeros, one and two candidates, negative values."""
+    rng = np.random.RandomState(7)
+    mags = {
+        'spread': np.exp(rng.uniform(-20, 5, 5001)),
+        'octave': 1.0 + rng.rand(9000),
+        'tied': np.floor(rng.rand(6000) * 4) + 1,
+        'pairs': np.repeat(rng.rand(700), 2),
+        'signed_zero': np.where(rng.rand(400) > 0.5, 0.0, -0.0),
+        'one': np.array([3.25]),
+        'two': np.array([2.0, 1.0]),
+        'negative': rng.randn(4000),
+    }[case].astype(np.float32)
+    k_lo, k_hi = _radix_median_keys(mags)
+    t = torch.from_numpy(mags)[None, :]
+    n = mags.size
+    want_lo = tuning_kernel._kth_smallest(t, torch.tensor([(n - 1) // 2]))
+    want_hi = tuning_kernel._kth_smallest(t, torch.tensor([n // 2]))
+    values = tuning_kernel._key_values(torch.tensor([k_lo, k_hi]))
+    assert values[0].item() == want_lo.item()        # -0 == +0 here
+    assert values[1].item() == want_hi.item()
+    assert values[0].item() == np.sort(mags)[(n - 1) // 2]
+    assert values[1].item() == np.sort(mags)[n // 2]
+
+
+def test_residual_bin_guess_steps_to_the_table_bin():
+    """The kernel bins a residual by arithmetic, then steps against the
+    edge table; the guess must land within a step or two of the table's
+    bin for every residual in range, edges and their neighbours
+    included, or the steps would be a search."""
+    edges = tuning_kernel.hist_edges_ceil32()
+    r = np.concatenate([
+        np.random.RandomState(0).uniform(-0.5, 0.5, 20000).astype(np.float32),
+        edges[:-1], np.nextafter(edges[1:], np.float32(-1)),
+        np.nextafter(edges[:-1], np.float32(1))])
+    r = r[(r >= edges[0]) & (r < edges[-1])]
+    table = np.searchsorted(edges, r, side='right') - 1
+    guess = np.clip(((r + np.float32(0.5)) * np.float32(100)).astype(np.int32),
+                    0, 99)
+    assert np.abs(guess - table).max() <= 1
+
+
 def test_hist_edges_copy_matches_original():
     np.testing.assert_array_equal(tuning_kernel.hist_edges_ceil32(),
                                   jaf._hist_edges_ceil32())
@@ -231,6 +380,113 @@ def test_rolloff_edge_rows():
     ref = np.asarray(rolloff_bins_pallas(jnp.asarray(rows)))
     np.testing.assert_array_equal(got, ref)
     assert list(got[:2]) == [0, F - 1]
+
+
+@pytest.mark.parametrize('R', [1, 130, 131, 1040, 1041, 4160, 4161, 4290])
+def test_rows_per_block_leaves_a_block_for_every_sm(R):
+    """K3's geometry: a warp a row, 1 to 8 rows a block; fewer than 8
+    only while that keeps at least one block for each SM; the last block
+    is ragged when R is not a multiple."""
+    from mec_tpu_torch.ops import _build
+    rows = rolloff_kernel.rows_per_block(R)
+    assert 1 <= rows <= rolloff_kernel.MAX_ROWS_PER_BLOCK
+    blocks = -(-R // rows)
+    assert blocks * rows >= R > (blocks - 1) * rows
+    assert rows == 1 or blocks >= _build.SM_COUNT
+    assert rows == 8 or -(-R // (rows + 1)) < _build.SM_COUNT
+    c, _text = _kernel_constants('rolloff_bins.cu')
+    assert c['kMaxWarps'] == rolloff_kernel.MAX_ROWS_PER_BLOCK
+
+
+@pytest.mark.parametrize('F', [1025, 1024, 1023, 2049, 33, 32, 7, 1])
+def test_lane_bins_and_row_buffer(F):
+    """Lane l of a row's warp owns ceil(F / 32) consecutive bins: together
+    every bin once, in order. The row sits in its buffer shifted by the
+    source's misalignment (0 to 3 floats), so the 16-byte copies of the
+    aligned body are aligned on both sides and the buffer holds the row
+    at every shift; 8 buffers of the serving width fit the 48 KB a launch
+    gets unasked."""
+    runs = rolloff_kernel.lane_bins(F)
+    assert len(runs) == 32
+    seen = np.zeros(F, int)
+    at = 0
+    for lo, hi in runs:
+        assert lo == min(at, F) and hi - lo <= -(-F // 32)
+        seen[lo:hi] += 1
+        at = hi
+    assert (seen == 1).all()
+    size = rolloff_kernel.row_buffer_floats(F)
+    assert size % 4 == 0
+    for shift in range(4):
+        head = min((4 - shift) % 4, F)
+        assert shift + F <= size
+        assert (shift + head) % 4 == 0 or head == F   # the body is aligned
+    if F == 1025:
+        assert 8 * size * 4 <= 48 * 1024
+        # a stride of 33 words: the 32 lanes read 32 different banks
+        assert len({lo % 32 for lo, _hi in runs}) == 32
+
+
+def _lane_scan_bins(rows, roll_percent=0.85):
+    """The kernel's order of sums in numpy f32: serial lane sums, a
+    Hillis-Steele scan of the 32 of them, the first lane at or over the
+    threshold walks its bins from its exclusive prefix."""
+    R, F = rows.shape
+    out = np.zeros(R, np.int32)
+    for r in range(R):
+        runs = rolloff_kernel.lane_bins(F)
+        sums = np.zeros(32, np.float32)
+        for l, (lo, hi) in enumerate(runs):
+            acc = np.float32(0)
+            for k in range(lo, hi):
+                acc = np.float32(acc + rows[r, k])
+            sums[l] = acc
+        incl = sums.copy()
+        off = 1
+        while off < 32:
+            up = np.concatenate([np.zeros(off, np.float32), incl[:-off]])
+            incl = np.where(np.arange(32) >= off, incl + up, incl
+                            ).astype(np.float32)
+            off *= 2
+        thresh = np.float32(np.float32(roll_percent) * incl[31])
+        hit = np.nonzero(incl >= thresh)[0]
+        if not len(hit):
+            out[r] = F - 1
+            continue
+        lo, hi = runs[hit[0]]
+        run = incl[hit[0] - 1] if hit[0] else np.float32(0)
+        found = hi - 1
+        for k in range(lo, hi):
+            run = np.float32(run + rows[r, k])
+            if run >= thresh:
+                found = k
+                break
+        out[r] = found
+    return out
+
+
+@pytest.mark.parametrize('F', [1025, 257, 33])
+def test_lane_scan_order_finds_the_crossing_bin(F):
+    """The kernel's summation order (emulated in numpy f32) against the
+    plain version: equal bins, or a one-bin step where the f64 prefix
+    lies within the f32 sum's rounding of the threshold. Rows: random
+    spectra, a single spike in every lane's first and last bin, and the
+    all-zero row."""
+    rng = np.random.RandomState(F)
+    rows = [rng.rand(24, F) ** 4, np.zeros((1, F))]
+    spikes = np.zeros((6, F))
+    for i, k in enumerate((0, F - 1, F // 2, 32, min(33, F - 1), F // 3)):
+        spikes[i, k] = 2.5
+    rows = np.concatenate(rows + [spikes]).astype(np.float32)
+    got = _lane_scan_bins(rows)
+    want = rolloff_kernel.rolloff_bins_plain(torch.from_numpy(rows)).numpy()
+    assert got[24] == 0
+    np.testing.assert_array_equal(got[25:], want[25:])
+    for r in np.nonzero(got != want)[0]:
+        cum = np.cumsum(rows[r].astype(np.float64))
+        lo = min(got[r], want[r])
+        assert abs(int(got[r]) - int(want[r])) == 1
+        assert abs(cum[lo] - 0.85 * cum[-1]) <= F * 2.0 ** -24 * cum[-1]
 
 
 # ----------------------------------------------------------------------
