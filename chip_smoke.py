@@ -3,13 +3,15 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Three paths are driven: speech (waveform -> wire -> 56-dim frontend ->
+Four paths are driven: speech (waveform -> wire -> 56-dim frontend ->
 SpeechDNN; kernels K1-K4), image (uint8 RGB -> YUV 4:2:0 wire ->
 full-width 224 px ResNet50 in bf16 with BN folded and int8 static
-convs; kernels K6 stem pool, K7 layer1) and the tri-modal request (the
+convs; kernels K6 stem pool, K7 layer1), the tri-modal request (the
 two, BERT-base in bf16 with int8 static encoder matmuls and the
 attention fusion in one device step; with MEC_DFT_PRECISION=highest the
-speech frontend is the framed one on kernel K5).
+speech frontend is the framed one on kernel K5), and a models directory
+served through get_engine and the inference facades (MobileNetV2 at
+224 px and the random-forest fusion; K1-K4).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
@@ -57,10 +59,29 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               the same engine on device='cpu' (given the card's scales)
               and an fp32 parity tri-modal engine against device='cpu'
               within 1e-4
+  6b. models  the port's writer makes a full-width models directory (speech
+              DNN, BERT-base with config.json and vocab.txt, MobileNetV2 at
+              224 px, the fusion net, a 100-tree depth-12 forest over 21
+              features); get_engine(dir) with MEC_FUSION_MODE=rf and bf16
+              lands on the card, calibrates and writes its int8 scales
+              back into the .mecp metas; warms up buckets (1, 8, 32),
+              serves 4 requests through MultimodalFusion().predict_
+              multimodal and 4 through the micro-batcher, one image and
+              one text through ImageInference and TextInference; checks
+              28-wide rows with method 'random_forest', the launch
+              counters (K1-K4 once per dispatch, K5-K7 never), agreement
+              with from_models_dir(device='cpu') (which must take the
+              card's scales from the cache) at B <= 5: speech, text and
+              image within their bands, the rf tail within 1e-6 of the
+              forest on the card's own s/t/i and equal to the cpu's
+              wherever no walk compares an input within those bands of
+              its threshold (near walks counted); and a second card
+              engine in fp32 against the cpu within 1e-4
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
-              in a torch.profiler window of the same 30 calls, which
-              leaves out the wrapper's host work), its plain version and,
+              in a marked torch.profiler range of the same 30 calls,
+              which leaves out the wrapper's host work, or "not measured"
+              where the profiler lost half of them), its plain version and,
               where one PyTorch call computes the same function, that
               call (K5: one matmul against both bases; K6: F.max_pool2d;
               timed here, used nowhere in the port) at B=32 in turns
@@ -72,7 +93,10 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               highest), the text device step at B=1, 32 and seq 16, 32,
               128, the predict_multimodal host wall at B=1, and one
               profiled window of the tri-modal step (device busy share,
-              device ops per step)
+              device ops per step); from the models phase: the MobileNetV2
+              image step (bf16 int8, fp32) and the rf tri-modal step (with
+              busy share and ops) at B=1, 8, 32, the forest walk and one
+              depthwise conv at B=32, and from_models_dir's host wall
   8. report   the card's name and power limit; a JSON line of the seven
               kernels (name, route, source, replaces, launches and
               launches_per_dispatch on the tri-modal path, max_abs_err,
@@ -110,8 +134,19 @@ SPEECH_BAND = 1e-4
 # and head GEMMs in other orders, so a few activations round one bf16
 # step apart and may move an int8 code downstream
 IMAGE_BAND = 2e-2
+# the bf16 int8-static MobileNetV2 card engine against the same engine
+# on the CPU (given the card's static scales): the card's and the CPU's
+# bf16 convolutions accumulate in other orders, so where an output rounds
+# one bf16 step apart an int8 code downstream may move (`python3 -m
+# mec_tpu_torch.bench.kernel_ab --mobilenet-drift` names the stages), as
+# quantization moves them against fp32: the band is tests/test_quant.py's
+# for MobileNetV2 in int8 against fp32
+MOBILENET_BAND = 5e-2
 BERT_SEED = 0
 FUSION_SEED = 1
+# the models directory's trees: a random MobileNetV2 whose decisions differ
+# on images()
+MODELS_SEED = 1
 # bf16 tri-modal card engine against the same engine on the CPU (given
 # the card's static scales). Located with `python3 -m
 # mec_tpu_torch.bench.kernel_ab --bert-drift` (NVIDIA H100 80GB HBM3,
@@ -253,55 +288,96 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS):
-    """Median milliseconds a call of fn() keeps the card busy: the summed
-    durations of the device launches of each call (kernels, and any
-    memset or copy it issues) inside one torch.profiler window of reps
-    calls, after 3 warm-up calls. Unlike cuda_ms it leaves out the
-    wrapper's host work before the launch. The profiler now and then
-    loses launches of a window: such a window is measured again, once,
-    and if that one is short too the time is put together by kernel
-    name (the median duration of each name times its launches a call),
-    which lost launches do not move. Returns (ms, launches a call)."""
+PROFILE_MARK = 'chip_smoke.window'
+
+
+def profiled_launches(fn, reps):
+    """The device launches (kernels, and any memset or copy) of reps calls
+    of fn(), in the order they started, from one torch.profiler window.
+    The profiler loses launches, most often at the edges of a window (the
+    first two in most windows on the H100's machine, nearly all of them
+    in a few), so the window opens with reps calls and closes with 3
+    that are not kept. The kept calls run inside a marked range that is synchronized
+    at both ends, and a launch is kept when it starts inside that range:
+    the launches before it had ended at its start, the later ones were
+    not yet issued at its end."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    for attempt in range(2):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with record_function(PROFILE_MARK):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
-        if kern and len(kern) % reps == 0:
-            n = len(kern) // reps
-            per_call = [sum(e.time_range.elapsed_us() for e in kern[i:i + n])
-                        / 1e3 for i in range(0, len(kern), n)]
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    marks = [e for e in events
+             if e.name == PROFILE_MARK and e.device_type == DeviceType.CPU]
+    if not marks:
+        return []
+    lo, hi = marks[0].time_range.start, marks[0].time_range.end
+    return sorted((e for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != PROFILE_MARK
+                   and lo <= e.time_range.start <= hi),
+                  key=lambda e: e.time_range.start)
+
+
+def device_ms(fn, reps=REPS, tries=3):
+    """Median milliseconds a call of fn() keeps the card busy: the summed
+    durations of the device launches of each call inside a profiled range
+    of reps calls (profiled_launches), after 3 warm-up calls. Unlike
+    cuda_ms it leaves out the wrapper's host work before the launch. A
+    range whose launches are not a whole multiple of reps lost some; it
+    is profiled again, up to `tries` ranges, and if none is whole the
+    time is put together from the fullest by kernel name (the median
+    duration of each name times its launches a call), which a few lost
+    launches do not move. Where every range lost half its launches or
+    more the device time is not measured: returns (None, None), and the
+    report says so. Returns (ms, launches a call)."""
+    for _ in range(3):
+        fn()
+    kern = []
+    for attempt in range(tries):
+        got = profiled_launches(fn, reps)
+        if got and len(got) % reps == 0:
+            n = len(got) // reps
+            per_call = [sum(e.time_range.elapsed_us() for e in got[i:i + n])
+                        / 1e3 for i in range(0, len(got), n)]
             return statistics.median(per_call), n
-        print(f'profiler: {len(kern)} device launches in {reps} calls'
-              + (', profiling again' if attempt == 0 else
-                 ', timing by kernel name'))
-    check(len(kern) > reps // 2, f'profiler: {len(kern)} device launches in '
-          f'{reps} calls, twice')
+        print(f'profiler: {len(got)} device launches in {reps} calls'
+              + (', profiling again' if attempt < tries - 1 else ''))
+        kern = max(kern, got, key=len)
+    if len(kern) <= reps // 2:
+        print(f'profiler: device time not measured ({len(kern)} device '
+              f'launches in {reps} calls at best of {tries} ranges)')
+        return None, None
     by_name = {}
     for e in kern:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
     counts = {name: max(1, round(len(d) / reps)) for name, d in by_name.items()}
+    print(f'profiler: timing by kernel name from {len(kern)} launches')
     return (sum(counts[name] * statistics.median(d)
                 for name, d in by_name.items()), sum(counts.values()))
 
 
+def fmt_ms(ms, digits=4):
+    return 'not measured' if ms is None else f'{ms:.{digits}f} ms'
+
+
 def profile_step(fn, steps=10):
-    """One profiled window of `steps` calls after 5 warm-up calls: the
-    host-clock wall of one synced call (median of 10), the device time
-    of its kernels, their share of the wall, kernels per call, and the
-    kernels taking the most device time."""
+    """One profiled range of `steps` calls (profiled_launches) after 5
+    warm-up calls: the host-clock wall of one synced call (median of 10),
+    the device time of its kernels, their share of the wall, kernels per
+    call, and the kernels taking the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -311,13 +387,7 @@ def profile_step(fn, steps=10):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = profiled_launches(fn, steps)
     by = {}
     for e in kern:
         by[e.name[:60]] = by.get(e.name[:60], 0.0) \
@@ -948,7 +1018,257 @@ def main():
           f'decisions equal)')
     del t32, t32_cpu
 
+    def tri_wires(eng, B, texts):
+        ids, mask = eng._to_device(eng._text_wire(texts, B))
+        return (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids, mask,
+                eng._to_device(eng._wire_image(tri_pics[:B], B)))
+
+    # ---------------------------------------------------------- 6b models
+    from mec_tpu_torch.convert import store
+    from mec_tpu_torch.inference import (ImageInference, MultimodalFusion,
+                                         TextInference)
+    from mec_tpu_torch.models.forest import forest_apply, forest_leaves
+    from mec_tpu_torch.serving.engine import get_engine
+    from mec_tpu_torch.serving.synthetic_artifacts import \
+        write_synthetic_artifacts
+    models_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_models_')
+    mdir = models_tmp.name
+    t0 = time.perf_counter()
+    write_synthetic_artifacts(mdir, seed=MODELS_SEED,
+                              image_arch='mobilenet_v2', image_size=224)
+    sizes = {f: os.path.getsize(os.path.join(r, f)) / 2 ** 20
+             for r, _d, fs in os.walk(mdir) for f in fs if f.endswith('.mecp')}
+    print(f'models: full-width directory written in '
+          f'{time.perf_counter() - t0:.2f} s by the port\'s writer ('
+          + ', '.join(f'{f} {mb:.1f} MiB' for f, mb in sorted(sizes.items()))
+          + ')')
+    saved = Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION
+    Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = \
+        'rf', 'bfloat16', 'high'
+    try:
+        t0 = time.perf_counter()
+        m_eng = get_engine(mdir, reload=True)        # the default device
+        load_first = time.perf_counter() - t0
+        check(m_eng.device.type == 'cuda' and m_eng._fusion_kind == 'rf'
+              and m_eng._image_arch == 'mobilenet_v2' and m_eng._all_live
+              and m_eng._image_quant_mode == m_eng._bert_quant_mode
+              == 'static' and not m_eng._image_scales_cached
+              and m_eng.forest['arrays']['threshold'].is_cuda,
+              'get_engine(models_dir) did not build the bf16 rf MobileNetV2 '
+              'engine on the card')
+        cached = {k for f in ('image_model.mecp', 'bert_model/bert_model.mecp')
+                  for k in store.load_params(os.path.join(mdir, f))['meta']
+                  .get('int8_scales', {})}
+        check(cached == {m_eng._image_scales_key(), m_eng._bert_scales_key()},
+              f'scales not written back to the .mecp metas: {cached}')
+        n_trees = m_eng.forest['arrays']['feature'].shape[0]
+        print(f'models engine: get_engine on cuda (bf16, rf fusion, '
+              f'MobileNetV2 int8 static, {n_trees} trees of depth '
+              f'{m_eng.forest["depth"]}) in {load_first:.2f} s, calibrated '
+              f'on the card and written back under {sorted(cached)}')
+        for w in wrappers.values():
+            w.launches = 0
+        m_eng.warmup((1, 8, 32))
+        fusion = MultimodalFusion()
+        m_singles = [fusion.predict_multimodal(**r) for r in requests[:4]]
+        # the batches the batcher forms depend on the threads' timing:
+        # record them, so the cpu twin serves the same batches
+        m_groups, serve_batch = [], m_eng.predict_multimodal_batch
+
+        def recorded_batch(rs):
+            m_groups.append(list(rs))
+            return serve_batch(rs)
+        m_eng.predict_multimodal_batch = recorded_batch
+        batcher = EngineBatcher(m_eng)
+        try:
+            m_served = serve_through(batcher.multimodal, requests[4:])
+        finally:
+            batcher.stop()
+            del m_eng.predict_multimodal_batch
+        one_image = ImageInference().predict(requests[0]['image_path'])
+        one_text = TextInference().predict(TEXTS[0])
+        counts = {name: w.launches for name, w in wrappers.items()}
+        n_batches = batcher.stats()['multimodal']['batches']
+        m_dispatches = 3 + 3 * len(seqs) + 4 + n_batches
+        print(f'models engine: {m_dispatches} dispatches of the speech leg '
+              f'(3 single-modality warmup, {3 * len(seqs)} rf tri-modal '
+              f'warmup, 4 MultimodalFusion requests, {n_batches} batcher); '
+              f'launches {counts}')
+        for name, n in counts.items():
+            want = m_dispatches if name in speech_names else 0
+            check(n == want, f'{name} launched {n} times in {m_dispatches} '
+                  f'dispatches of the models engine (want {want})')
+        for r in m_singles + m_served:
+            check(set(r) == {'speech', 'text', 'image', 'fusion'}
+                  and r['fusion'].get('method') == 'random_forest'
+                  and 'attention_weights' not in r['fusion'],
+                  f'rf tri-modal result {r}')
+        check(set(one_image) == set(one_text) == {
+            'emotion', 'confidence', 'all_probabilities'},
+            'facade results')
+
+        # the CPU twin over the same directory takes the card's scales
+        t0 = time.perf_counter()
+        m_cpu = EmotionEngine.from_models_dir(mdir, device='cpu')
+        load_cached = time.perf_counter() - t0
+        check(m_cpu._image_scales_cached and m_cpu._bert_scales_cached,
+              'the cpu models engine did not take the card\'s scales')
+        e_req = {}
+        cpu_batched = {id(r): out for g in m_groups
+                       for r, out in zip(g, m_cpu.predict_multimodal_batch(g))}
+        for what, got, ref in (
+                ('single', m_singles, [m_cpu.predict_multimodal(**r)
+                                       for r in requests[:4]]),
+                ('batched', m_served,
+                 [cpu_batched[id(r)] for r in requests[4:]])):
+            for mod, band in (('speech', SPEECH_BAND), ('text', TRI_BAND),
+                              ('image', MOBILENET_BAND)):
+                e_req[f'{what} {mod}'] = check_results(
+                    [g[mod] for g in got], [r[mod] for r in ref], band,
+                    f'models bf16 {what} {mod}')
+        print('models engine: the 8 requests agree with the cpu engine ('
+              + ', '.join(f'{k} {v:.3e}' for k, v in e_req.items()) + ')')
+        walks = {}
+
+        def rf_tail(k_rows, c_rows, eng, what, bands):
+            """The card's rf tails: within 1e-6 of the forest walked on
+            the card's own s/t/i; and the cpu engine's tail wherever no
+            walk compares an input within its modality's band (bands:
+            speech, text, image) of a threshold (such walks may flip a
+            branch: counted)."""
+            x = torch.from_numpy(np.ascontiguousarray(k_rows[:, :21])).to(dev)
+            own = forest_apply(eng.forest['arrays'], x,
+                               eng.forest['depth']).cpu().numpy()
+            e_own = float(np.abs(k_rows[:, 21:28] - own).max())
+            check(e_own <= 1e-6, f'{what}: rf tail vs its own walk {e_own}')
+            arrays = {k: v.cpu().numpy()
+                      for k, v in eng.forest['arrays'].items()}
+            bands = np.repeat(bands, 7)
+            near = rows_near = 0
+            for b in range(k_rows.shape[0]):
+                row_near = False
+                for t in range(arrays['feature'].shape[0]):
+                    n = 0
+                    while arrays['left'][t, n] != n:
+                        f = arrays['feature'][t, n]
+                        thr = arrays['threshold'][t, n]
+                        if abs(k_rows[b, f] - thr) <= bands[f]:
+                            row_near = True
+                            near += 1
+                            break
+                        n = arrays['left' if k_rows[b, f] <= thr
+                                   else 'right'][t, n]
+                rows_near += row_near
+                if not row_near:
+                    e = float(np.abs(k_rows[b, 21:28]
+                                     - c_rows[b, 21:28]).max())
+                    check(e <= 1e-6, f'{what}: rf tail row {b} differs from '
+                          f'cpu by {e} with no walk near a threshold')
+            walks[what] = (near, rows_near, e_own)
+            return near, rows_near
+
+        texts5 = TEXTS[:5]
+        k_rows = m_eng._run_trimodal(tri_waves[:5], texts5, tri_pics[:5])
+        c_rows = m_cpu._run_trimodal(tri_waves[:5], texts5, tri_pics[:5])
+        check(k_rows.shape == (5, 28) and bool(np.isfinite(k_rows).all()),
+              f'rf packed rows {k_rows.shape}')
+        e_parts = {part: float(np.abs(k_rows[:, a:b] - c_rows[:, a:b]).max())
+                   for part, a, b in (('speech', 0, 7), ('text', 7, 14),
+                                      ('image', 14, 21), ('rf', 21, 28))}
+        for part, band in (('speech', SPEECH_BAND), ('text', TRI_BAND),
+                           ('image', MOBILENET_BAND)):
+            check(e_parts[part] <= band, f'models bf16 {part}: '
+                  f'{e_parts[part]} > {band}')
+        near, rows_near = rf_tail(k_rows, c_rows, m_eng, 'bf16',
+                                  [SPEECH_BAND, TRI_BAND, MOBILENET_BAND])
+        labels = {mod: sorted({r[mod]['emotion']
+                               for r in m_singles + m_served})
+                  for mod in ('speech', 'text', 'image', 'fusion')}
+        print(f'models engine: agrees with from_models_dir(device=cpu) '
+              f'(scales from the cache, built in {load_cached:.2f} s): B=5 '
+              f'packed '
+              f'rows by part ' + ', '.join(f'{k} {v:.3e}' for k, v in
+                                         e_parts.items())
+              + f'; rf tail within {walks["bf16"][2]:.1e} of the forest on '
+              f'the card\'s own s/t/i; {rows_near} of 5 rows with a walk '
+              f'near a threshold ({near} walks of {5 * n_trees}), the others '
+              f'equal to cpu; decisions over 8 requests: {labels}')
+
+        # fp32: a second card engine against the cpu engine
+        m32 = EmotionEngine.from_models_dir(mdir, compute_dtype='float32')
+        m32_cpu = EmotionEngine.from_models_dir(mdir, compute_dtype='float32',
+                                                device='cpu')
+        k32 = m32._run_trimodal(tri_waves[:5], texts5, tri_pics[:5])
+        c32 = m32_cpu._run_trimodal(tri_waves[:5], texts5, tri_pics[:5])
+        e32 = float(np.abs(k32[:, :21] - c32[:, :21]).max())
+        check(e32 <= 1e-4, f'models fp32: s/t/i differ from cpu by {e32}')
+        _near32, rows_near32 = rf_tail(k32, c32, m32, 'fp32', [1e-4] * 3)
+        e32_rf = float(np.abs(k32[:, 21:] - c32[:, 21:]).max())
+        print(f'models engine (fp32 parity): the card agrees with device=cpu '
+              f'(s/t/i max|err| {e32:.3e} <= 1e-4; rf tail {e32_rf:.3e}, '
+              f'{rows_near32} of 5 rows with a walk within 1e-4 of a '
+              f'threshold)')
+        del m_cpu, m32_cpu
+    finally:
+        Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = saved
+
     # ----------------------------------------------------------- 7 times
+    # the models phase first: the MobileNetV2 image step, the rf
+    # tri-modal step, the forest walk and MobileNetV2's depthwise conv
+    for mode, eng in (('bf16-int8', m_eng), ('fp32', m32)):
+        for B in (1, 8, 32):
+            wire_dev = eng._to_device(eng._wire_image(pics[:B], B))
+            step = cuda_ms(lambda: eng._image_forward(wire_dev), reps=20)
+            print(f'time mobilenet_v2 image device step {mode:9s} B={B:2d}: '
+                  f'{step:.4f} ms (CUDA events, wire already on the card); '
+                  f'{card}')
+    for B in (1, 8, 32):
+        args = tri_wires(m_eng, B, (TEXTS * 4)[:B])
+        step = cuda_ms(lambda: m_eng._trimodal_forward(*args), reps=20)
+        wall, busy, share, ops, _top = profile_step(
+            lambda: m_eng._trimodal_forward(*args))
+        print(f'time rf trimodal device step B={B:2d} seq {args[1].shape[1]}: '
+              f'{step:.4f} ms (CUDA events); profiled wall {wall:.3f} ms, '
+              f'device busy {busy:.3f} ms, busy share {share:.3f}, '
+              f'{ops:.0f} device ops/step; {card}')
+    xf = torch.from_numpy(np.random.RandomState(9).dirichlet(
+        np.ones(7), (32, 3)).reshape(32, 21).astype(np.float32)).to(dev)
+    fa = m_eng.forest['arrays']
+    depth = m_eng.forest['depth']
+    with torch.inference_mode():
+        ev = cuda_ms(lambda: forest_apply(fa, xf, depth))
+        dv, n_dv = device_ms(lambda: forest_apply(fa, xf, depth))
+        leaves = forest_leaves(fa, xf, depth)
+    T = fa['feature'].shape[0]
+    # bytes: x read, the visited nodes' feature, threshold, left and right
+    # (8 + 4 + 8 + 8 bytes) once a level, each leaf's 7 probabilities,
+    # the (B, 7) result
+    walk_bytes = xf.numel() * 4 + 32 * T * depth * 28 + 32 * T * 7 * 4 \
+        + 32 * 7 * 4
+    b_ms, b_by, _peak = bound(walk_bytes, 32 * T * (depth + 7), 'fp32')
+    print(f'time forest walk B=32 ({T} trees, depth {depth}, '
+          f'{int(torch.unique(leaves).numel())} distinct leaves): {ev:.4f} ms '
+          f'by events, {fmt_ms(dv)} on the device ({n_dv} launches a call); '
+          f'bound {b_ms:.5f} ms by {b_by}; {card}')
+    blk = m_eng.image['model'].block_2.dw_conv
+    xd = torch.randn(32, 112, 112, blk.in_channels, dtype=torch.bfloat16,
+                     device=dev)
+    with torch.inference_mode():
+        yd = blk(xd)
+        ev = cuda_ms(lambda: blk(xd))
+        dv, n_dv = device_ms(lambda: blk(xd))
+    b_ms, b_by, _peak = bound(nbytes(xd, yd, blk.weight, blk.bias),
+                              2 * yd.numel() * 9, 'fp32')
+    print(f'time depthwise conv (block_2.dw_conv, {tuple(xd.shape)} bf16 '
+          f'NHWC -> {tuple(yd.shape)}, cuDNN through F.conv2d on the '
+          f'channels-last view): {ev:.4f} ms by events, {fmt_ms(dv)} on the '
+          f'device ({n_dv} launches a call: conv and bias add); output '
+          f'NHWC-contiguous {yd.is_contiguous()}; bound {b_ms:.5f} ms by '
+          f'{b_by}; {card}')
+    print(f'time from_models_dir host wall (full-width directory, '
+          f'{sum(sizes.values()):.0f} MiB of .mecp): {load_first:.2f} s on '
+          f'cuda with calibration and write-back, {load_cached:.2f} s on '
+          f'the cpu with cached scales; {card}')
     P, mags, residual, pitches, rows, x = inputs32
     stem32, pooled32 = image_inputs32
     timed = {
@@ -1007,7 +1327,7 @@ def main():
                        statistics.median([l1, l2]) if lib else None, dev_ms)
         lib_ms = f'{times[name][2]:.4f} ms' if lib else 'none'
         print(f'time {name:13s} B=32: kernel {times[name][0]:.4f} ms by '
-              f'events, {dev_ms:.4f} ms on the device ({n_dev} launches a '
+              f'events, {fmt_ms(dev_ms)} on the device ({n_dev} launches a '
               f'call, torch.profiler), plain {times[name][1]:.4f} ms, '
               f'library call {lib_ms} (medians of {REPS} runs; {card})')
 
@@ -1055,11 +1375,16 @@ def main():
             + M7 * 256 * 2,
             2 * M7 * sum(c.kernel_q.numel() for c in convs), 'int8_tc'),
     }
+    def bound_share(b_ms, dev_ms):
+        return None if dev_ms is None else b_ms / dev_ms
+
     for name, (ms, by, peak) in bounds.items():
+        dev_share = bound_share(ms, times[name][3])
         print(f'bound {name:13s} B=32: {ms:.5f} ms, bound by {by} ({peak} '
               f'peak of the H100 SXM data sheet); share of the kernel\'s '
-              f'device time {ms / times[name][3]:.3f} (of its event time '
-              f'{ms / times[name][0]:.3f})')
+              f'device time '
+              + ('not measured' if dev_share is None else f'{dev_share:.3f}')
+              + f' (of its event time {ms / times[name][0]:.3f})')
     for mode, eng in (('bf16', engine), ('fp32 parity', parity)):
         for B in (1, 8, 32):
             wire_dev = eng._to_device(eng._wire_waves(clips[:B], B))
@@ -1086,11 +1411,6 @@ def main():
                   f'(CUDA events, wire already on the card); predict_images '
                   f'host wall {statistics.median(host):.2f} ms (median of 10,'
                   f' incl. wire encode + copies); {card}')
-
-    def tri_wires(eng, B, texts):
-        ids, mask = eng._to_device(eng._text_wire(texts, B))
-        return (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids, mask,
-                eng._to_device(eng._wire_image(tri_pics[:B], B)))
 
     for prec, eng in tri.items():
         for B in (1, 8, 32):
@@ -1128,6 +1448,7 @@ def main():
         for name, ms in top:
             print(f'  {ms:8.4f} ms  {name}')
     tmp.cleanup()
+    models_tmp.cleanup()
 
     # ---------------------------------------------------------- 8 report
     sources = {'mfcc_mean': ('mec_tpu_torch/csrc/mfcc_mean.cu',
@@ -1160,14 +1481,14 @@ def main():
              'max_abs_err': errs[name], 'ms': ms, 'device_ms': dev_ms,
              'plain_ms': plain_ms,
              'bound_ms': b_ms, 'bound_by': b_by, 'bound_peak': b_peak,
-             'share': b_ms / dev_ms, 'library_ms': lib_ms}
+             'share': bound_share(b_ms, dev_ms), 'library_ms': lib_ms}
         if name == 'dft_spectrograms':
             ms, plain_ms, lib_ms, dev_ms = times[name + '[bf16]']
             b_ms, b_by, b_peak = bounds[name + '[bf16]']
             e.update(bf16_ms=ms, bf16_device_ms=dev_ms,
                      bf16_plain_ms=plain_ms, bf16_bound_ms=b_ms,
                      bf16_bound_by=b_by, bf16_bound_peak=b_peak,
-                     bf16_share=b_ms / dev_ms,
+                     bf16_share=bound_share(b_ms, dev_ms),
                      bf16_library_ms=lib_ms)
         return e
 

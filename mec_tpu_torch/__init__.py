@@ -23,7 +23,13 @@ What is ported so far:
   (BN folded, int8 bottleneck convs with static scales) and in fp32
   parity mode (live BN);
 * the attention fusion and the tri-modal request: the three encoders
-  and the fusion net in one device step -> one packed row per request.
+  and the fusion net in one device step -> one packed row per request;
+  with MEC_FUSION_MODE=rf the random-forest fusion (a level-synchronous
+  walk over the three softmax outputs) in its place;
+* MobileNetV2 as the image model, in the same three forms as ResNet50;
+* a models directory of the JAX package's .mecp artifacts, read and
+  written without flax or msgpack, served through get_engine and the
+  reference-API facades (inference/).
 
 All seven TPU Pallas kernels are rewritten as CUDA C++ kernels for
 sm_90a (csrc/, built at first use by ops/_build.py): K1 mfcc_mean, K2
@@ -36,12 +42,16 @@ Package layout:
               numpy filter tables, WAV decode, BN fold, int8 quantization,
               the nvcc build
   csrc/       the hand-written CUDA kernels
-  models/     SpeechDNN, BERT, ResNet50, the fusion net, QuantConv and
-              QuantDense (plain nn.Modules)
+  models/     SpeechDNN, BERT, ResNet50, MobileNetV2, the fusion net,
+              the forest walk, QuantConv and QuantDense (plain
+              nn.Modules and torch ops)
   image/      image decode and the ImageNet constants
   text/       text cleaning and the WordPiece tokenizer
-  convert/    JAX (Flax numpy tree) -> port parameters
-  serving/    wire codecs, engine, micro-batcher, synthetic parameters
+  convert/    the .mecp reader and writer, the HF config.json widths,
+              JAX (Flax numpy tree) -> port parameters
+  serving/    wire codecs, engine (and get_engine), micro-batcher,
+              synthetic parameters and models directories
+  inference/  the reference-API facades over get_engine
   utils/      StageTimer
 """
 

@@ -6,7 +6,7 @@ in turns with an older build of the sources.
 
     python3 -m mec_tpu_torch.bench.kernel_ab [--kernels k1,k2,k3,k4,k5,k7]
         [--old-csrc DIR] [--reps N] [--profile] [--split] [--variants]
-        [--trace] [--bert-drift]
+        [--trace] [--bert-drift] [--mobilenet-drift]
 
 * build: what ptxas reports for the sources (registers, spills, shared
   memory) and, where the toolkit has cuobjdump, how many tensor-core
@@ -58,6 +58,12 @@ in turns with an older build of the sources.
   input: each stage of each layer computed on the card from the CPU
   run's operands, which names the operations whose results differ
   between the devices on identical inputs.
+* --mobilenet-drift (alone, or with --bert-drift): the same for the
+  int8-static MobileNetV2 at 224 px (chip_smoke.py's models-directory
+  image model), at B = 1 and 4: the stem's output, then block by block
+  in the free run, and each stage of each block (expand QuantConv,
+  ReLU6, depthwise conv, ReLU6, project QuantConv, residual) on the CPU
+  run's operands.
 
 * --trace: K1, K2 and K4 built alone with -DMEC_TRACE (csrc/trace.cuh): the
   clocks one block spends between the phase marks of its source, at
@@ -892,6 +898,126 @@ def bert_drift(dev, card):
               or 'none'))
 
 
+MOBILENET_STAGES = ('expand_conv', 'expand_relu6', 'dw_conv', 'dw_relu6',
+                    'project_conv', 'residual')
+
+
+def mobilenet_block_stages(block, x, forced=None):
+    """models.mobilenet.InvertedResidual.forward (folded, int8), stage by
+    stage: {stage: its output}; with `forced`, each stage computes on
+    that run's input to it (bert_layer_stages' scheme)."""
+    import torch.nn.functional as F
+    out = {}
+
+    def keep(name, value):
+        out[name] = value
+        return value if forced is None else forced[name].to(value.device)
+
+    h = x
+    if block.has_expand:
+        h = keep('expand_conv', block.expand_conv(h))
+        h = keep('expand_relu6', F.relu6(h))
+    h = keep('dw_conv', block.dw_conv(h))
+    h = keep('dw_relu6', F.relu6(h))
+    h = keep('project_conv', block.project_conv(h))
+    if block.residual:
+        keep('residual', h + x)
+    return out
+
+
+def mobilenet_drift(dev, card, seed=3):
+    """Where the bf16 int8-static MobileNetV2 (224 px) on the card leaves
+    the same model on the CPU, as bert_drift does for BERT, at B = 1 and
+    4: free run (the stem's output, each block's output and each
+    QuantConv's int8 operand compared; blocks with no difference are
+    counted, not printed), then every stage of every block computed on
+    the card from the CPU run's operands. seed 3 is chip_smoke.py's
+    models-directory image (MODELS_SEED + 2)."""
+    from mec_tpu_torch.models.qconv import QuantConv
+    from mec_tpu_torch.ops.quant import extract_static_scales
+    from mec_tpu_torch.serving.engine import EmotionEngine
+    from mec_tpu_torch.serving.synthetic_artifacts import mobilenet_variables
+    tree, meta = mobilenet_variables(seed=seed, image_size=224)
+    on_card = EmotionEngine(image_variables=tree, image_meta=meta,
+                            compute_dtype='bfloat16', device='cuda')
+    scales = {on_card._image_scales_key():
+              extract_static_scales(on_card.image['variables'])}
+    on_cpu = EmotionEngine(image_variables=tree,
+                           image_meta=dict(meta, int8_scales=scales),
+                           compute_dtype='bfloat16', device='cpu')
+    models = {'card': on_card.image['model'], 'cpu': on_cpu.image['model']}
+    blocks = models['cpu'].blocks
+    for B in (1, 4):
+        imgs = np.random.RandomState(8).randint(0, 256, (4, 224, 224, 3),
+                                                np.uint8)[:B]
+        free, codes, packed = {}, {}, {}
+        for where, model in models.items():
+            seen, ops, hooks = {}, {}, []
+            for name, mod in model.named_modules():
+                if name in blocks:
+                    hooks.append(mod.register_forward_hook(
+                        lambda m, i, o, name=name: seen.__setitem__(
+                            name, (i[0], o))))
+                if isinstance(mod, QuantConv):
+                    hooks.append(mod.register_forward_hook(
+                        lambda m, i, o, name=name: ops.__setitem__(
+                            name, torch.clamp(torch.round(
+                                i[0].float() / m.act_scale), -127, 127
+                            ).to(torch.int8).cpu())))
+            eng = on_card if where == 'card' else on_cpu
+            with torch.inference_mode():
+                packed[where] = eng._image_forward(eng._to_device(
+                    eng._wire_image(imgs, eng._bucket(B))))[:B].float().cpu()
+            for hook in hooks:
+                hook.remove()
+            free[where], codes[where] = seen, ops
+        print(f'mobilenet-drift B={B}: MobileNetV2 224 px, bf16 int8 '
+              f"static, the card's scales on both ({card} against this "
+              f"host's CPU); free run: the stem's output max|dh| "
+              f'{_gap(free["card"]["block_1"][0], free["cpu"]["block_1"][0]):.4g}')
+        quiet = 0
+        for name in blocks + ['conv_head']:
+            diff = []
+            for op, a in codes['card'].items():
+                if op == name or op.startswith(name + '.'):
+                    n_bad = int((a != codes['cpu'][op]).sum())
+                    if n_bad:
+                        diff.append(f'{op}: {n_bad}/{a.numel()} int8 codes '
+                                    f'differ')
+            gap = (_gap(free['card'][name][1], free['cpu'][name][1])
+                   if name in blocks else 0.0)
+            if gap == 0.0 and not diff:
+                quiet += 1
+                continue
+            print(f'mobilenet-drift B={B} free run: {name} max|dh| {gap:.4g}'
+                  + ''.join('; ' + d for d in diff))
+        probs = {w: packed[w][:, :7] for w in packed}
+        print(f'mobilenet-drift B={B} free run: {quiet} of '
+              f'{len(blocks) + 1} (the blocks and conv_head) equal on both; '
+              f'probabilities max|d| '
+              f'{_gap(probs["card"], probs["cpu"]):.4g}, feature max|d| '
+              f'{_gap(packed["card"][:, 7:], packed["cpu"][:, 7:]):.4g}, '
+              f'decisions equal: '
+              f'{bool((probs["card"].argmax(1) == probs["cpu"].argmax(1)).all())}')
+        worst = {stage: 0.0 for stage in MOBILENET_STAGES}
+        with torch.inference_mode():
+            for name in blocks:
+                x_in = free['cpu'][name][0]
+                ref = mobilenet_block_stages(getattr(models['cpu'], name),
+                                             x_in)
+                got = mobilenet_block_stages(getattr(models['card'], name),
+                                             x_in.to(dev), forced=ref)
+                for stage in ref:
+                    worst[stage] = max(worst[stage],
+                                       _gap(got[stage], ref[stage]))
+        print(f'mobilenet-drift B={B} same input: bit-equal on both devices '
+              'in every block: ' + (', '.join(
+                  st for st, g in worst.items() if g == 0.0) or 'no stage')
+              + '; differing: ' + (', '.join(
+                  f'{st} (max {g:.3g})' for st, g in worst.items() if g > 0.0)
+                  or 'none'))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--kernels', default='k1,k2,k3,k4,k5,k7',
@@ -912,6 +1038,9 @@ def main():
     ap.add_argument('--bert-drift', action='store_true', help='only this: '
                     'where the int8-static BERT on the card leaves the same '
                     'model on the CPU, layer by layer and stage by stage')
+    ap.add_argument('--mobilenet-drift', action='store_true', help='only '
+                    'this: the same for the int8-static MobileNetV2, block '
+                    'by block and stage by stage')
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(',') if k]
     if not kernels or set(kernels) - set(SOURCES):
@@ -923,8 +1052,11 @@ def main():
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(f'card: {card} | torch {torch.__version__}')
-    if args.bert_drift:
-        bert_drift(dev, card)
+    if args.bert_drift or args.mobilenet_drift:
+        if args.bert_drift:
+            bert_drift(dev, card)
+        if args.mobilenet_drift:
+            mobilenet_drift(dev, card)
         print('kernel_ab: ok')
         return
     build_report(kernels)

@@ -98,7 +98,20 @@ class Config:
     # per-token (dense) dynamic scales.
     INT8_STATIC = _env_flag('MEC_INT8_STATIC', True)
 
-    # Fusion backend: 'attention' (the attention network). 'rf', the
-    # random-forest variant, is not ported (ROADMAP queue A item 7): the
-    # engine raises NotImplementedError when it is set.
+    # Fusion backend: 'attention' (the attention network) or 'rf' (the
+    # random-forest ensemble over the per-modality softmax outputs,
+    # models/forest.py), which needs the fusion_rf artifact; without it
+    # the engine serves the attention network, as the JAX engine does.
     FUSION_MODE = os.environ.get('MEC_FUSION_MODE', 'attention')
+
+    # Model artifact paths (reference config.py:39-44). The engine reads
+    # the .mecp beside each (serving/engine.py::EmotionEngine.
+    # from_models_dir); with a models_dir it takes their basenames there.
+    SPEECH_MODEL_PATH = os.environ.get('SPEECH_MODEL_PATH', 'models/speech_model.h5')
+    SPEECH_SCALER_PATH = os.environ.get('SPEECH_SCALER_PATH', 'models/speech_scaler.pkl')
+    TEXT_MODEL_PATH = os.environ.get('TEXT_MODEL_PATH', 'models/text_model.h5')
+    IMAGE_MODEL_PATH = os.environ.get('IMAGE_MODEL_PATH', 'models/image_model.h5')
+    FUSION_MODEL_PATH = os.environ.get('FUSION_MODEL_PATH', 'models/fusion_model.pkl')
+    BERT_MODEL_PATH = os.environ.get('BERT_MODEL_PATH', 'models/bert_model')
+    FUSION_RF_MODEL_PATH = os.environ.get('FUSION_RF_MODEL_PATH',
+                                          'models/fusion_rf.pkl')

@@ -1,8 +1,8 @@
 """JAX-package parameters -> the port's parameters.
 
 The port reads the numpy trees the JAX package uses (a Flax
-{'params', 'batch_stats'} tree of arrays), not the .mecp files on disk:
-those are Flax msgpack, and the card's machine has no flax or msgpack.
+{'params', 'batch_stats'} tree of arrays), as convert/store.load_params
+reads them from a .mecp file.
 
 Speech: two consumers take the same tree:
   * speech_state_from_jax -> the state dict of models.SpeechDNN (the
@@ -12,10 +12,13 @@ Speech: two consumers take the same tree:
     (BatchNorm folded into each Dense by fold_batchnorm, flattened).
 
 Image, text and fusion: state_from_jax (named image_state_from_jax,
-bert_state_from_jax and fusion_state_from_jax at its call sites) -> the
-state dict of models.resnet.ImageEmotionModel (live BN, BN-folded or
+mobilenet_state_from_jax, bert_state_from_jax and fusion_state_from_jax
+at its call sites) -> the state dict of models.resnet.ImageEmotionModel
+and models.mobilenet.MobileNetV2EmotionModel (live BN, BN-folded or
 int8), models.bert.BertForSequenceClassification (plain or int8) and
 models.fusion.MultiModalFusionModel.
+
+Forest: forest_from_jax -> the tables of models.forest.forest_apply.
 """
 
 from __future__ import annotations
@@ -110,8 +113,27 @@ def state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 
 # One walk serves every Flax tree the engine loads: ResNet50 (live BN,
-# folded or int8) -> models.resnet.ImageEmotionModel, BERT (plain or
-# int8) -> models.bert.BertForSequenceClassification, the fusion net ->
-# models.fusion.MultiModalFusionModel.
-image_state_from_jax = bert_state_from_jax = fusion_state_from_jax = \
-    state_from_jax
+# folded or int8) -> models.resnet.ImageEmotionModel, MobileNetV2 (the
+# same three forms; a depthwise HWIO kernel (3, 3, 1, C) becomes torch's
+# (C, 1, 3, 3)) -> models.mobilenet.MobileNetV2EmotionModel, BERT (plain
+# or int8) -> models.bert.BertForSequenceClassification, the fusion net
+# -> models.fusion.MultiModalFusionModel.
+image_state_from_jax = mobilenet_state_from_jax = bert_state_from_jax = \
+    fusion_state_from_jax = state_from_jax
+
+
+def forest_from_jax(arrays: Dict, device='cpu') -> Dict[str, torch.Tensor]:
+    """The JAX package's forest arrays (mec_tpu/models/forest.py layout:
+    int32 topology, float32 thresholds and leaf distributions) -> the
+    tensors of models.forest.forest_apply on `device`: indices int64 for
+    torch's gathers, thresholds and probabilities float32 (never cast:
+    the thresholds define the walk exactly)."""
+    out = {}
+    for k in ('feature', 'left', 'right'):
+        out[k] = torch.from_numpy(np.asarray(arrays[k], np.int64))
+    for k in ('threshold', 'proba'):
+        a = np.asarray(arrays[k])
+        if a.dtype != np.float32:
+            raise ValueError(f'forest {k} is {a.dtype}, expected float32')
+        out[k] = torch.from_numpy(np.ascontiguousarray(a))
+    return {k: v.to(device) for k, v in out.items()}

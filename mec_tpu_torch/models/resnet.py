@@ -42,12 +42,13 @@ BN_EPS = 1e-5
 
 
 class ConvNHWC(nn.Conv2d):
-    """nn.Conv2d on NHWC activations; a bias is added after the conv,
-    in the compute dtype."""
+    """nn.Conv2d on NHWC activations (grouped too: MobileNetV2's
+    depthwise convs); a bias is added after the conv, in the compute
+    dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, None, self.stride,
-                     self.padding).permute(0, 2, 3, 1)
+                     self.padding, 1, self.groups).permute(0, 2, 3, 1)
         return y if self.bias is None else y + self.bias
 
 

@@ -19,9 +19,13 @@ app (`create_app(engine=...)`) and the micro-batcher drive it unchanged:
     device -> decode + ImageNet normalize -> ResNet50 (bf16: BN folded,
     stem pool K6, int8 bottleneck convs with static scales, layer1 K7;
     fp32: live BN, fp32 convs, plain pool) -> packed [probs | feat]
+  image, MobileNetV2 (an artifact whose params hold 'conv_stem'): the
+    same wire and forms (bf16: BN folded, the 1x1 expand/project convs
+    and conv_head int8 static, depthwise 3x3s in bf16; fp32: live BN)
   tri-modal: the three encoders and the attention fusion in one device
     step -> one packed (B, 34) row [s 7 | t 7 | i 7 | fusion 7 | attn 3 |
-    decision 3]
+    decision 3]; with MEC_FUSION_MODE=rf and a forest, the forest's walk
+    over the three softmax outputs instead -> (B, 28) [s | t | i | rf 7]
   -> result dicts
 
 Batches pad up to Config.BATCH_BUCKETS, as in the JAX engine. The device
@@ -37,14 +41,35 @@ the heuristic ladder; text: the keyword map; image: neutral; fusion:
 the weighted average), and an undecodable upload takes the reference's
 fallback ladder (speech: that request; image: the whole batch; a
 tri-modal request: per-modality results and the weighted fusion), as
-the JAX engine does. Not ported: the random-forest fusion
-(MEC_FUSION_MODE=rf), the Bi-LSTM text model and MobileNetV2; they raise
-NotImplementedError naming their ROADMAP item.
+the JAX engine does. Not ported: the Bi-LSTM text model; with its
+artifact present predict_texts_lstm raises NotImplementedError naming
+its ROADMAP item (without one it serves the keyword map, as in JAX).
+
+EmotionEngine.from_models_dir (and get_engine, the process-wide
+singleton) reads a models directory of .mecp artifacts as the JAX
+engine's _load_all does, with convert/store.py in place of flax: the
+speech DNN and its .npz scaler, bert_model/ (bert_model.mecp,
+config.json, vocab.txt), the image model (ResNet50 or MobileNetV2, its
+meta's img_size and int8_scales), the fusion net, and in rf mode
+fusion_rf.mecp. Static int8 scales calibrated at load are written back
+into the artifact's meta under the JAX engine's keys, so either engine
+built next skips the calibration. Deviations from the JAX loader:
+  * a missing artifact serves its fallback, as in JAX;
+  * a corrupt .mecp or an invalid forest raises, where JAX logs and
+    degrades;
+  * a reference-format artifact with no .mecp beside it (.h5, .pt, an
+    HF BERT dir without bert_model.mecp, a scaler .pkl without its .npz)
+    raises NotImplementedError naming ROADMAP queue A item 21: the port
+    has no converters, and serving the fallback would answer what the
+    JAX engine does not;
+  * a read-only models directory keeps the new scales in memory only
+    (logged); any other failure to write them raises.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -54,15 +79,21 @@ import numpy as np
 import torch
 
 from mec_tpu_torch.config import Config
+from mec_tpu_torch.convert import store
 from mec_tpu_torch.convert.from_jax import (bert_state_from_jax,
+                                            forest_from_jax,
                                             fusion_state_from_jax,
                                             image_state_from_jax,
                                             speech_state_from_jax,
                                             speech_widths)
+from mec_tpu_torch.convert.hf_config import (model_kwargs_from_config,
+                                             read_config)
 from mec_tpu_torch.image.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
                                             load_image_uint8)
 from mec_tpu_torch.models.bert import BertForSequenceClassification
+from mec_tpu_torch.models.forest import forest_apply
 from mec_tpu_torch.models.fusion import MultiModalFusionModel
+from mec_tpu_torch.models.mobilenet import MobileNetV2EmotionModel
 from mec_tpu_torch.models.resnet import ImageEmotionModel
 from mec_tpu_torch.models.speech_dnn import SpeechDNN
 from mec_tpu_torch.ops import audio_features as af
@@ -70,6 +101,7 @@ from mec_tpu_torch.ops import wav
 from mec_tpu_torch.ops.dft_kernel import PRECISIONS
 from mec_tpu_torch.ops.fold import fold_conv_bn
 from mec_tpu_torch.ops.quant import (calibrate_static_scales,
+                                     extract_static_scales,
                                      insert_static_scales,
                                      quantize_bert_params,
                                      quantize_image_params)
@@ -150,6 +182,26 @@ def _not_ported(item: str):
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
+# the image architectures, by the JAX engine's scale-cache name
+_IMAGE_MODELS = {'resnet50': ImageEmotionModel,
+                 'mobilenet_v2': MobileNetV2EmotionModel}
+
+
+def _read_native(ref_path: str) -> Optional[Dict[str, Any]]:
+    """The .mecp beside a reference-format artifact path, loaded
+    ({'variables', 'meta'}); None when neither file exists. A corrupt
+    .mecp raises; a reference-format file alone raises
+    NotImplementedError (queue A item 21: the port has no converters)."""
+    nat = store.native_path(ref_path)
+    if os.path.exists(nat):
+        loaded = store.load_params(nat)
+        loaded['meta'] = loaded.get('meta') or {}
+        return loaded
+    if os.path.exists(ref_path):
+        _not_ported(f'21 (the checkpoint converters: {ref_path} has no '
+                    f'.mecp beside it)')
+    return None
+
 
 def make_parity_speech_dnn(variables: Dict, device):
     """The plain SpeechDNN with live BatchNorm over the Flax tree, on
@@ -191,24 +243,34 @@ class EmotionEngine:
                  bert_meta: Optional[Dict] = None,
                  fusion_variables: Optional[Dict] = None,
                  fusion_config: Optional[Dict] = None,
+                 forest_arrays: Optional[Dict] = None,
+                 forest_meta: Optional[Dict] = None,
+                 artifact_paths: Optional[Dict[str, str]] = None,
                  compute_dtype: Optional[str] = None, device):
         """Parameters are the JAX package's Flax trees of numpy arrays;
         a modality whose tree is None serves its fallback.
 
         speech_variables ({'params', 'batch_stats'} SpeechDNN) and
         scaler ((mean, scale), each (56,); None is the identity).
-        image_variables ({'params', 'batch_stats'} ResNet50) and
-        image_meta ('img_size', and 'int8_scales', the JAX package's
-        static-scale cache, honoured by key). bert_variables ({'params'}
+        image_variables ({'params', 'batch_stats'} ResNet50, or
+        MobileNetV2 when the params hold 'conv_stem') and image_meta
+        ('img_size', and 'int8_scales', the JAX package's static-scale
+        cache, honoured by key). bert_variables ({'params'}
         BertForSequenceClassification), bert_kwargs (its widths, as the
         JAX engine reads them from config.json), bert_vocab (a
         WordPiece vocab {token: id} or a WordPieceTokenizer; without one
         the text model is disabled, as the JAX engine disables it
         without vocab.txt) and bert_meta ('int8_scales').
         fusion_variables ({'params'} MultiModalFusionModel) and
-        fusion_config (its dims). compute_dtype: 'bfloat16' (serving
-        mode: compressed wires, the hand-written kernels, folded BN,
-        int8) or 'float32' (parity mode: the reference's fp32 graph,
+        fusion_config (its dims). forest_arrays and forest_meta (the
+        random-forest fusion, mec_tpu/models/forest.py layout; served in
+        the tri-modal step when Config.FUSION_MODE is 'rf').
+        artifact_paths: the .mecp files the trees were read from
+        ('image', 'bert': new static scales are written back into their
+        meta) and 'lstm', a Bi-LSTM artifact found beside them (not
+        served; from_models_dir fills it). compute_dtype: 'bfloat16'
+        (serving mode: compressed wires, the hand-written kernels,
+        folded BN, int8) or 'float32' (parity mode: the reference's fp32 graph,
         whose speech leg is the rFFT frontend of
         audio_features_56(precision='parity') and the live-BN
         SpeechDNN); None reads Config.COMPUTE_DTYPE. device: 'cpu' or 'cuda[:n]', never
@@ -224,8 +286,6 @@ class EmotionEngine:
         if name not in _DTYPES:
             raise ValueError(f'compute_dtype {name!r}: expected one of '
                              f'{sorted(_DTYPES)}')
-        if Config.FUSION_MODE == 'rf':
-            _not_ported('7 (the random-forest fusion, MEC_FUSION_MODE=rf)')
         self.compute_dtype = _DTYPES[name]
         self._dtype_name = name
         # the speech frontend, fixed at load as the JAX engine fixes it at
@@ -242,8 +302,13 @@ class EmotionEngine:
         self.image: Optional[Dict[str, Any]] = None
         self.bert: Optional[Dict[str, Any]] = None
         self.fusion: Optional[Dict[str, Any]] = None
-        self.lstm = None
+        self.forest: Optional[Dict[str, Any]] = None
+        self.lstm = self.lstm_tokenizer = None
         self.bert_tokenizer: Optional[WordPieceTokenizer] = None
+        paths = dict(artifact_paths or {})
+        self._image_native_path = paths.get('image')
+        self._bert_native_path = paths.get('bert')
+        self._lstm_path = paths.get('lstm')
         self._decode_pool = None
         self._decode_pool_lock = threading.Lock()
         if speech_variables is not None:
@@ -277,6 +342,121 @@ class EmotionEngine:
             model.load_state_dict(fusion_state_from_jax(fusion_variables))
             self.fusion = {'model': model.to(
                 self.device).eval().requires_grad_(False)}
+        if forest_arrays is not None:
+            meta = dict(forest_meta or {})
+            classes = self._validate_forest(meta)
+            self.forest = {'arrays': forest_from_jax(forest_arrays,
+                                                     self.device),
+                           'depth': int(meta['depth']), 'classes': classes,
+                           'index': torch.tensor(classes, device=self.device)}
+        # the fusion backend (JAX engine.py:505-513): the forest in rf
+        # mode when one is loaded, else the attention net
+        self._fusion_kind: Optional[str] = None
+        if Config.FUSION_MODE == 'rf' and self.forest is not None:
+            self._fusion_kind = 'rf'
+        elif self.fusion is not None:
+            self._fusion_kind = 'attention'
+            if Config.FUSION_MODE == 'rf':
+                log.warning('MEC_FUSION_MODE=rf but no fusion_rf artifact '
+                            '(%s); serving attention fusion',
+                            Config.FUSION_RF_MODEL_PATH)
+
+    @classmethod
+    def from_models_dir(cls, models_dir: Optional[str] = None, *,
+                        compute_dtype: Optional[str] = None,
+                        device='cuda') -> 'EmotionEngine':
+        """The engine over a models directory (JAX engine.py:279-513):
+        each artifact is the .mecp at the basename of its Config path
+        under models_dir (models_dir None: the Config path itself). A
+        missing artifact leaves its modality on the fallback; the
+        deviations are in the module docstring."""
+        def path(p: str) -> str:
+            if models_dir is not None:
+                return os.path.join(models_dir, os.path.basename(p))
+            return p
+
+        kw: Dict[str, Any] = {}
+        paths: Dict[str, str] = {}
+        speech = _read_native(path(Config.SPEECH_MODEL_PATH))
+        scaler = None
+        if speech is not None:
+            scaler_path = path(Config.SPEECH_SCALER_PATH)
+            npz = os.path.splitext(scaler_path)[0] + '.npz'
+            if os.path.exists(npz):
+                with np.load(npz) as z:
+                    scaler = (z['mean'], z['scale'])
+            elif os.path.exists(scaler_path):
+                _not_ported(f'21 (the checkpoint converters: '
+                            f'{scaler_path} has no .npz beside it)')
+        bert_dir = path(Config.BERT_MODEL_PATH)
+        nat = os.path.join(bert_dir, 'bert_model.mecp')
+        if os.path.exists(nat):
+            loaded = store.load_params(nat)
+            cfg = (read_config(bert_dir) if os.path.exists(
+                os.path.join(bert_dir, 'config.json')) else {})
+            if cfg.get('num_experts'):
+                _not_ported('12 (the mixture-of-experts BERT FFN)')
+            kw.update(bert_variables=loaded['variables'],
+                      bert_kwargs=model_kwargs_from_config(cfg),
+                      bert_vocab=WordPieceTokenizer.from_pretrained_dir(
+                          bert_dir),
+                      bert_meta=loaded.get('meta') or {})
+            paths['bert'] = nat
+        elif any(os.path.exists(os.path.join(bert_dir, f))
+                 for f in ('pytorch_model.bin', 'model.safetensors')):
+            _not_ported(f'21 (the checkpoint converters: {bert_dir} has no '
+                        f'bert_model.mecp)')
+        lstm = path(Config.TEXT_MODEL_PATH)
+        tok = path(os.path.splitext(Config.TEXT_MODEL_PATH)[0] + '_tokenizer')
+        found = [p for p in (store.native_path(lstm), lstm)
+                 if os.path.exists(p)]
+        if found and any(os.path.exists(tok + e) for e in ('.json', '.pkl')):
+            paths['lstm'] = found[0]
+        image_ref = path(Config.IMAGE_MODEL_PATH.replace('.h5', '.pt'))
+        image = _read_native(image_ref)
+        if image is not None:
+            kw.update(image_variables=image['variables'],
+                      image_meta=image['meta'])
+            paths['image'] = store.native_path(image_ref)
+        fusion = _read_native(path(Config.FUSION_MODEL_PATH.replace('.pkl',
+                                                                    '.pt')))
+        if fusion is not None:
+            kw.update(fusion_variables=fusion['variables'],
+                      fusion_config=fusion['meta'].get('config', {}))
+        if Config.FUSION_MODE == 'rf':
+            rf = _read_native(path(Config.FUSION_RF_MODEL_PATH))
+            if rf is not None:
+                kw.update(forest_arrays=rf['variables']['forest'],
+                          forest_meta=rf['meta'])
+        return cls(speech['variables'] if speech else None, scaler,
+                   artifact_paths=paths, compute_dtype=compute_dtype,
+                   device=device, **kw)
+
+    @staticmethod
+    def _validate_forest(meta: Dict[str, Any]) -> Tuple[int, ...]:
+        """Reject an unservable forest artifact at load (JAX
+        engine.py:253-277, which then serves the fallback ladder; the
+        port raises); returns the fitted classes."""
+        if 'depth' not in meta:
+            raise ValueError('forest artifact missing the depth meta '
+                             '(static trace constant) — re-convert it')
+        n_feat = int(meta.get('n_features', 3 * Config.NUM_EMOTIONS))
+        if n_feat != 3 * Config.NUM_EMOTIONS:
+            raise ValueError(
+                f'forest expects {n_feat} features; the fusion input is '
+                f'{3 * Config.NUM_EMOTIONS} concatenated softmax outputs')
+        classes = tuple(int(c) for c in
+                        meta.get('classes', range(Config.NUM_EMOTIONS)))
+        if not set(classes) <= set(range(Config.NUM_EMOTIONS)):
+            raise ValueError(f'forest classes {classes} are not emotion '
+                             f'ids 0..{Config.NUM_EMOTIONS - 1}')
+        if len(classes) < Config.NUM_EMOTIONS:
+            # trained on data missing some emotions: legal, the outputs
+            # scatter into the full vector
+            log.warning('forest fusion trained on %d/%d classes; missing '
+                        'emotions get probability 0', len(classes),
+                        Config.NUM_EMOTIONS)
+        return classes
 
     def _bucket(self, n: int) -> int:
         return _bucket_for(n)
@@ -294,7 +474,7 @@ class EmotionEngine:
 
     @property
     def _all_live(self) -> bool:
-        return (self.fusion is not None and self.speech is not None
+        return (self._fusion_kind is not None and self.speech is not None
                 and self.bert is not None and self.image is not None)
 
     @staticmethod
@@ -444,8 +624,8 @@ class EmotionEngine:
         meta['int8_scales'][key] when present and complete, else one
         dynamic-mode forward on the device of seven keyworded sentences,
         one per emotion, at MAX_TEXT_LENGTH (engine.py:670-675)."""
-        if self._insert_cached_scales(self.bert, self._bert_scales_key(),
-                                      'BERT'):
+        key = self._bert_scales_key()
+        if self._insert_cached_scales(self.bert, key, 'BERT'):
             self._bert_scales_cached = True
             return
         dyn = BertForSequenceClassification(
@@ -459,6 +639,29 @@ class EmotionEngine:
             Config.MAX_TEXT_LENGTH)
         self.bert['variables'] = calibrate_static_scales(
             dyn, self.bert['variables'], self._to_device((ids, mask)))
+        self._scales_cache_put(self._bert_native_path, key,
+                               extract_static_scales(self.bert['variables']))
+
+    @staticmethod
+    def _scales_cache_put(nat_path: Optional[str], key: str,
+                          scales: Dict[str, float]) -> None:
+        """Write first-calibration act scales into the artifact's .mecp
+        meta under the JAX engine's key (engine.py:575-593), so a later
+        engine build of either package skips the calibration. A
+        read-only directory (OSError) is logged and serving goes on;
+        anything else raises."""
+        if not nat_path or not os.path.exists(nat_path):
+            return
+        loaded = store.load_params(nat_path)
+        meta = loaded.get('meta') or {}
+        cache = dict(meta.get('int8_scales') or {})
+        cache[key] = {k: float(v) for k, v in scales.items()}
+        try:
+            store.save_params(nat_path, loaded['variables'],
+                              meta=dict(meta, int8_scales=cache))
+        except OSError as e:
+            log.warning('int8 scale cache not persisted to %s: %s',
+                        nat_path, e)
 
     @torch.inference_mode()
     def _text_forward(self, ids: torch.Tensor, mask: torch.Tensor
@@ -514,8 +717,14 @@ class EmotionEngine:
             out.append(r)
         return out
 
-    def predict_texts_lstm(self, texts):
-        _not_ported('10 (Bi-LSTM text variant)')
+    def predict_texts_lstm(self, texts: Sequence[str]) -> List[Dict]:
+        """The Bi-LSTM variant (JAX engine.py:1117-1128): without its
+        artifact the keyword map, as in JAX; with one found beside the
+        others it raises, since the port serves no Bi-LSTM."""
+        if self._lstm_path is not None:
+            _not_ported(f'10 (the Bi-LSTM text variant; artifact '
+                        f'{self._lstm_path})')
+        return [self.text_keyword_heuristic(t) for t in texts]
 
     # ------------------------------------------------------------------
     # image
@@ -524,8 +733,8 @@ class EmotionEngine:
         """Fold, quantize and calibrate as the JAX engine does at load
         (engine.py:433-460, :714-731), raising where it would log and
         serve a weaker mode; then build the model on the device."""
-        if 'conv_stem' in variables['params']:
-            _not_ported('5 (the MobileNetV2 image variant)')
+        self._image_arch = ('mobilenet_v2' if 'conv_stem' in
+                            variables['params'] else 'resnet50')
         size = meta.get('img_size')
         if size:
             self._image_size = ((int(size), int(size)) if np.isscalar(size)
@@ -543,7 +752,7 @@ class EmotionEngine:
         if self._image_quant and Config.INT8_STATIC:
             self._calibrate_image_static()
             self._image_quant_mode = 'static'
-        model = ImageEmotionModel(
+        model = _IMAGE_MODELS[self._image_arch](
             dtype=self.compute_dtype, fold_bn=self._image_folded,
             quant=self._image_quant, quant_mode=self._image_quant_mode)
         model.load_state_dict(image_state_from_jax(self.image['variables']))
@@ -576,27 +785,32 @@ class EmotionEngine:
         return ((x - mean) / std).astype(np.float32)
 
     def _image_scales_key(self) -> str:
-        """The JAX engine's scale-cache key (engine.py:614-615)."""
+        """The JAX engine's scale-cache key (engine.py:610-615), which
+        names the architecture."""
         h, w = self._image_size
-        return f'image|resnet50|{h}x{w}|{self._dtype_name}|m1.25|v1'
+        return (f'image|{self._image_arch}|{h}x{w}|{self._dtype_name}|'
+                f'm1.25|v1')
 
     def _calibrate_image_static(self) -> None:
         """Static act scales for the quantized tree: from
         meta['int8_scales'][key] when present and complete, else one
-        dynamic-mode forward of the calibration batch on the device. The
-        JAX engine also persists new scales into the .mecp meta; the
-        port reads no .mecp (ROADMAP A14), so it does not."""
-        if self._insert_cached_scales(self.image, self._image_scales_key(),
-                                      'image'):
+        forward of the calibration batch through the architecture's
+        dynamic-mode model on the device, written back into the .mecp
+        meta."""
+        key = self._image_scales_key()
+        if self._insert_cached_scales(self.image, key, 'image'):
             self._image_scales_cached = True
             return
-        dyn = ImageEmotionModel(dtype=self.compute_dtype, fold_bn=True,
-                                quant=True, quant_mode='dynamic')
+        dyn = _IMAGE_MODELS[self._image_arch](
+            dtype=self.compute_dtype, fold_bn=True, quant=True,
+            quant_mode='dynamic')
         dyn.load_state_dict(image_state_from_jax(self.image['variables']))
         dyn = dyn.to(self.device).eval()
         x = torch.from_numpy(self._calibration_images()).to(self.device)
         self.image['variables'] = calibrate_static_scales(
             dyn, self.image['variables'], x)
+        self._scales_cache_put(self._image_native_path, key,
+                               extract_static_scales(self.image['variables']))
 
     def _wire_image(self, imgs: np.ndarray, bucket: int):
         """bf16 with Config.WIRE_COMPRESS ships YUV 4:2:0 (half the
@@ -723,8 +937,26 @@ class EmotionEngine:
                                  'image': float(dw[2])}
         return r
 
+    @torch.inference_mode()
+    def _forest_forward(self, s_p, t_p, i_p) -> torch.Tensor:
+        """Device step of the rf fusion (JAX forest_fwd,
+        engine.py:870-877): the forest's walk over the concatenated
+        softmax outputs in fp32 -> (B, 7); a forest fitted on fewer
+        classes scatters into the full vector."""
+        x = torch.cat([s_p, t_p, i_p], dim=-1).float()
+        p = forest_apply(self.forest['arrays'], x, self.forest['depth'])
+        if self.forest['classes'] == tuple(range(Config.NUM_EMOTIONS)):
+            return p
+        full = p.new_zeros((p.shape[0], Config.NUM_EMOTIONS))
+        full[:, self.forest['index']] = p
+        return full
+
     def _fusion_from_packed(self, row: np.ndarray) -> Dict[str, Any]:
         """Slice the fusion tail of a packed tri-modal output row."""
+        if self._fusion_kind == 'rf':
+            r = result_dict(row[21:28])
+            r['method'] = 'random_forest'
+            return r
         return self._fusion_result(row[21:28], row[28:31], row[31:34])
 
     # ------------------------------------------------------------------
@@ -736,19 +968,24 @@ class EmotionEngine:
                           i_wire: Tuple[torch.Tensor, ...]) -> torch.Tensor:
         """Device step of the tri-modal request (JAX trimodal_fwd,
         engine.py:879-894): the three encoders and the fusion ->
-        (bucket, 34) [s 7 | t 7 | i 7 | fusion 7 | attn 3 | decision 3]."""
+        (bucket, 34) [s 7 | t 7 | i 7 | fusion 7 | attn 3 | decision 3],
+        or in rf mode (bucket, 28) [s 7 | t 7 | i 7 | forest 7]."""
         n = len(EMOTIONS)
         s = self._speech_forward(w_wire)
         t = self._text_forward(ids, mask)
         im = self._image_forward(i_wire)
-        f = self._fusion_forward(s[:, n:], t[:, n:], im[:, n:],
-                                 s[:, :n], t[:, :n], im[:, :n])
+        if self._fusion_kind == 'rf':
+            f = self._forest_forward(s[:, :n], t[:, :n], im[:, :n])
+        else:
+            f = self._fusion_forward(s[:, n:], t[:, n:], im[:, n:],
+                                     s[:, :n], t[:, :n], im[:, :n])
         return torch.cat([s[:, :n], t[:, :n], im[:, :n], f], dim=-1)
 
     def _run_trimodal(self, waves: np.ndarray, texts: Sequence[str],
                       imgs: np.ndarray) -> np.ndarray:
         """Host side of one tri-modal dispatch: (n, 66150) waves, n
-        texts, (n, H, W, 3) uint8 -> the packed (n, 34) rows."""
+        texts, (n, H, W, 3) uint8 -> the packed (n, 34) rows ((n, 28)
+        in rf mode)."""
         n = len(texts)
         b = self._bucket(n)
         out = self._trimodal_forward(
@@ -948,3 +1185,20 @@ class EmotionEngine:
                 self._text_forward(ids, mask)
                 if self._all_live:
                     self._trimodal_forward(w_wire, ids, mask, i_wire)
+
+
+_engine: Optional[EmotionEngine] = None
+_engine_lock = threading.Lock()
+
+
+def get_engine(models_dir: Optional[str] = None, reload: bool = False, *,
+               device='cuda') -> EmotionEngine:
+    """The process-wide engine (JAX engine.py:1511-1517), built by
+    EmotionEngine.from_models_dir on `device` at the first call or with
+    reload=True; later calls return it whatever they pass."""
+    global _engine
+    with _engine_lock:
+        if _engine is None or reload:
+            _engine = EmotionEngine.from_models_dir(models_dir,
+                                                    device=device)
+        return _engine

@@ -1,5 +1,5 @@
-"""Random-init speech, image, BERT and fusion parameters for smoke runs
-and tests.
+"""Random-init speech, image, BERT, fusion and forest parameters for
+smoke runs and tests, and a models directory of them.
 
 The port's counterpart of mec_tpu/serving/synthetic_artifacts.py: the
 reference ships no weights, so the serving graph runs on random ones,
@@ -7,15 +7,22 @@ made with numpy from a seed (jax.random keys and torch generators give
 different numbers from one seed; numpy feeds both packages the same).
 The trees have the Flax layout the JAX package uses, which is what the
 port's engine takes; make_vocab is the JAX package's synthetic
-WordPiece vocab.
+WordPiece vocab. write_synthetic_artifacts writes them as .mecp files in
+the JAX writer's directory layout (convert/store.py), so a full-width
+models directory is made on a machine without jax or sklearn.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import string
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
+
+from mec_tpu_torch.convert import store
+from mec_tpu_torch.models.mobilenet import INVERTED_RESIDUAL_CFG
 
 
 def speech_variables(seed: int = 0, in_dim: int = 56,
@@ -46,6 +53,16 @@ def speech_variables(seed: int = 0, in_dim: int = 56,
     return {'params': params, 'batch_stats': stats}
 
 
+def _bn(rng, c, lo=0.5, hi=1.5):
+    """BatchNorm params and running statistics: scale in [lo, hi], small
+    shifts, running var in [0.5, 2]."""
+    p = {'scale': rng.uniform(lo, hi, c).astype(np.float32),
+         'bias': (0.02 * rng.randn(c)).astype(np.float32)}
+    s = {'mean': (0.02 * rng.randn(c)).astype(np.float32),
+         'var': rng.uniform(0.5, 2.0, c).astype(np.float32)}
+    return p, s
+
+
 def image_variables(seed: int = 0, image_size: int = 224,
                     stage_sizes: Sequence[int] = (3, 4, 6, 3),
                     n_classes: int = 7) -> Tuple[Dict, Dict]:
@@ -73,11 +90,7 @@ def image_variables(seed: int = 0, image_size: int = 224,
                            ).astype(np.float32)}
 
     def bn(c, lo=0.5, hi=1.5):
-        p = {'scale': rng.uniform(lo, hi, c).astype(np.float32),
-             'bias': (0.02 * rng.randn(c)).astype(np.float32)}
-        s = {'mean': (0.02 * rng.randn(c)).astype(np.float32),
-             'var': rng.uniform(0.5, 2.0, c).astype(np.float32)}
-        return p, s
+        return _bn(rng, c, lo, hi)
 
     params, stats = {}, {}
     params['conv1'] = conv(7, 7, 3, 64)
@@ -259,3 +272,179 @@ def layer1_quant_params(seed: int = 0) -> Dict:
             p['downsample_conv'] = conv(64, 256)
         params[f'layer1_{blk}'] = p
     return params
+
+
+def mobilenet_variables(seed: int = 0, image_size: int = 224,
+                        n_classes: int = 7) -> Tuple[Dict, Dict]:
+    """MobileNetV2 (width 1.0) {'params', 'batch_stats'} tree of float32
+    numpy arrays in the Flax layout of mec_tpu/models/mobilenet.py, and
+    its meta ({'arch': 'mobilenet_v2', 'img_size': image_size}).
+
+    He-normal conv kernels (HWIO; a depthwise kernel is (3, 3, 1, C)
+    with fan-in 9) and BN as in image_variables. project_bn scales by
+    [1, 2] where a stage begins (the stream is replaced) and by
+    [0.3, 0.6] in a residual block (it is added to): smaller scales let
+    the activations, and their dependence on the image, fade over the
+    17 blocks. The head is image_variables' recipe at 4x lecun scale
+    for fc2: zero-mean weights into each fc1 unit and class, so random
+    weights separate the classes (at 224 px and 32 px alike)."""
+    rng = np.random.RandomState(seed)
+
+    def conv(kh, kw, cin, cout, fan_in=None):
+        std = np.sqrt(2.0 / (fan_in or kh * kw * cin))
+        return {'kernel': (std * rng.randn(kh, kw, cin, cout)
+                           ).astype(np.float32)}
+
+    params, stats = {}, {}
+    params['conv_stem'] = conv(3, 3, 3, 32)
+    params['bn_stem'], stats['bn_stem'] = _bn(rng, 32)
+    idx, cin = 1, 32
+    for t, c, n, _s in INVERTED_RESIDUAL_CFG:
+        for i in range(n):
+            hidden = cin * t
+            p, st = {}, {}
+            if t != 1:
+                p['expand_conv'] = conv(1, 1, cin, hidden)
+                p['expand_bn'], st['expand_bn'] = _bn(rng, hidden)
+            p['dw_conv'] = conv(3, 3, 1, hidden, fan_in=9)
+            p['dw_bn'], st['dw_bn'] = _bn(rng, hidden)
+            p['project_conv'] = conv(1, 1, hidden, c)
+            p['project_bn'], st['project_bn'] = _bn(
+                rng, c, *((0.3, 0.6) if i else (1.0, 2.0)))
+            params[f'block_{idx}'], stats[f'block_{idx}'] = p, st
+            cin = c
+            idx += 1
+    params['conv_head'] = conv(1, 1, cin, 1280)
+    params['bn_head'], stats['bn_head'] = _bn(rng, 1280)
+    k1 = rng.randn(1280, 512) / np.sqrt(1280)
+    params['fc1'] = {
+        'kernel': (k1 - k1.mean(axis=0)).astype(np.float32),
+        'bias': (0.05 * rng.randn(512)).astype(np.float32)}
+    k2 = 4.0 * rng.randn(512, n_classes) / np.sqrt(512)
+    params['fc2'] = {
+        'kernel': (k2 - k2.mean(axis=0)).astype(np.float32),
+        'bias': (0.05 * rng.randn(n_classes)).astype(np.float32)}
+    return ({'params': params, 'batch_stats': stats},
+            {'arch': 'mobilenet_v2', 'img_size': image_size})
+
+
+def forest_arrays(seed: int = 0, n_trees: int = 100, depth: int = 12,
+                  n_features: int = 21, n_classes: int = 7
+                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """A random forest in the layout of mec_tpu/models/forest.py::
+    from_sklearn (arrays, meta), made with numpy alone: the defaults are
+    mec_tpu/training/train_fusion_rf.py's (100 trees, depth 12, the 21
+    concatenated softmax outputs).
+
+    Each tree grows level by level: a node splits with probability 0.8
+    (the first node of every level always, so every tree reaches
+    `depth`) on a random feature at a threshold in [0.02, 0.3] (the
+    inputs are probabilities near 1/7); leaves and padding self-loop;
+    every node carries a Dirichlet(0.5) class distribution, padding
+    zeros."""
+    rng = np.random.RandomState(seed)
+    trees = []
+    for _ in range(n_trees):
+        feat, thr, left, right = [0], [0.0], [0], [0]
+        level = np.array([0])
+        for _d in range(depth):
+            split = rng.rand(len(level)) < 0.8
+            split[0] = True
+            parents = level[split]
+            n0 = len(feat)
+            kids = n0 + np.arange(2 * len(parents))
+            feat += [0] * len(kids)
+            thr += [0.0] * len(kids)
+            left += list(kids)
+            right += list(kids)
+            for j, node in enumerate(parents):
+                feat[node] = int(rng.randint(n_features))
+                thr[node] = float(rng.uniform(0.02, 0.3))
+                left[node] = int(kids[2 * j])
+                right[node] = int(kids[2 * j + 1])
+            for node in level[~split]:
+                left[node] = right[node] = int(node)
+            level = kids
+        trees.append((feat, thr, left, right))
+    n_nodes = max(len(t[0]) for t in trees)
+    feature = np.zeros((n_trees, n_nodes), np.int32)
+    threshold = np.zeros((n_trees, n_nodes), np.float32)
+    left = np.tile(np.arange(n_nodes, dtype=np.int32), (n_trees, 1))
+    right = left.copy()
+    proba = np.zeros((n_trees, n_nodes, n_classes), np.float32)
+    for i, (f, t, lo, hi) in enumerate(trees):
+        n = len(f)
+        feature[i, :n], threshold[i, :n] = f, t
+        left[i, :n], right[i, :n] = lo, hi
+        proba[i, :n] = rng.dirichlet(0.5 * np.ones(n_classes), n)
+    arrays = {'feature': feature, 'threshold': threshold, 'left': left,
+              'right': right, 'proba': proba}
+    meta = {'kind': 'random_forest', 'depth': int(depth),
+            'n_features': int(n_features), 'n_classes': int(n_classes),
+            'classes': list(range(n_classes))}
+    return arrays, meta
+
+
+def write_synthetic_artifacts(models_dir: str, *, tiny: bool = False,
+                              seed: int = 0, image_arch: str = 'resnet50',
+                              image_size: int = 224) -> str:
+    """Populate `models_dir` with the JAX writer's artifacts
+    (mec_tpu/serving/synthetic_artifacts.py::write_synthetic_artifacts)
+    from the numpy trees above, through the port's store: the speech DNN
+    with an identity scaler, the BERT dir (bert_model.mecp, config.json,
+    vocab.txt), the image model with its meta (arch, img_size), the
+    fusion net with its config, and fusion_rf.mecp (100 trees of depth
+    12; tiny: 8 of depth 6). No Bi-LSTM: the port does not serve one.
+    Full width by default (BERT-base with vocab 30522); tiny: a 2-layer
+    BERT of width 64 over make_vocab. Returns the dir."""
+    os.makedirs(models_dir, exist_ok=True)
+    store.save_params(os.path.join(models_dir, 'speech_model.mecp'),
+                      speech_variables(seed))
+    np.savez(os.path.join(models_dir, 'speech_scaler.npz'),
+             mean=np.zeros(56, np.float32), scale=np.ones(56, np.float32))
+
+    vocab = make_vocab()
+    if tiny:
+        widths = dict(vocab_size=len(vocab), hidden_size=64, num_layers=2,
+                      intermediate_size=128, max_position=128)
+        heads = 2
+    else:
+        widths = dict(vocab_size=30522, hidden_size=768, num_layers=12,
+                      intermediate_size=3072, max_position=512)
+        heads = 12
+    bert_dir = os.path.join(models_dir, 'bert_model')
+    store.save_params(os.path.join(bert_dir, 'bert_model.mecp'),
+                      bert_variables(seed + 1, **widths))
+    cfg = {'vocab_size': widths['vocab_size'],
+           'hidden_size': widths['hidden_size'],
+           'num_hidden_layers': widths['num_layers'],
+           'num_attention_heads': heads,
+           'intermediate_size': widths['intermediate_size'],
+           'max_position_embeddings': widths['max_position'],
+           'type_vocab_size': 2, 'num_labels': 7}
+    with open(os.path.join(bert_dir, 'config.json'), 'w') as f:
+        json.dump(cfg, f)
+    inv = sorted(vocab.items(), key=lambda kv: kv[1])
+    with open(os.path.join(bert_dir, 'vocab.txt'), 'w') as f:
+        f.write('\n'.join(t for t, _ in inv))
+
+    if image_arch == 'mobilenet_v2':
+        image, meta = mobilenet_variables(seed + 2, image_size)
+    elif image_arch == 'resnet50':
+        image, meta = image_variables(seed + 2, image_size)
+        meta = {'arch': 'resnet50', **meta}
+    else:
+        raise ValueError(f'image_arch {image_arch!r}: expected resnet50 or '
+                         'mobilenet_v2')
+    store.save_params(os.path.join(models_dir, 'image_model.mecp'), image,
+                      meta=meta)
+
+    cfg = {'speech_dim': 64, 'text_dim': widths['hidden_size'],
+           'image_dim': 512, 'num_classes': 7, 'hidden_dim': 256}
+    store.save_params(os.path.join(models_dir, 'fusion_model.mecp'),
+                      fusion_variables(seed + 3, **cfg), meta={'config': cfg})
+
+    arrays, meta = forest_arrays(seed + 4, *((8, 6) if tiny else (100, 12)))
+    store.save_params(os.path.join(models_dir, 'fusion_rf.mecp'),
+                      {'forest': arrays}, meta=meta)
+    return models_dir

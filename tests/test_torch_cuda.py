@@ -24,6 +24,15 @@ tri-modal engines on the card and on the CPU agree in fp32 within 1e-4;
 in bf16 int8-static (the CPU engine takes the card engine's scales)
 decisions are equal wherever the top-2 margin exceeds the probability
 band of 2e-2 (bf16 GEMMs accumulate in other orders on the two devices).
+The forest walk parks at the same leaves on both devices (the same fp32
+comparisons) and its probabilities agree within 1e-6 (the mean over
+trees in another order); MobileNetV2 follows the image bands; a tiny
+models directory read by from_models_dir on the card agrees with the
+CPU engine over it (fp32 1e-4, and the rf tail within 1e-6 on rows whose
+walks park at the same leaves; bf16 rf mode, which takes the card's
+scales from the .mecp cache, 5e-2, the MobileNetV2 band of
+chip_smoke.py; the rf tail within 1e-6 of the forest on the card's own
+softmax outputs).
 """
 
 import numpy as np
@@ -32,19 +41,21 @@ import torch
 
 from mec_tpu_torch.bench.kernel_ab import narrow_tree, power_of
 from mec_tpu_torch.config import Config
-from mec_tpu_torch.convert.from_jax import image_state_from_jax
+from mec_tpu_torch.convert.from_jax import (forest_from_jax,
+                                            image_state_from_jax,
+                                            mobilenet_state_from_jax)
+from mec_tpu_torch.models.forest import forest_apply, forest_leaves
+from mec_tpu_torch.models.mobilenet import MobileNetV2EmotionModel
 from mec_tpu_torch.models.resnet import Bottleneck
 from mec_tpu_torch.ops import audio_features as af
 from mec_tpu_torch.ops import (dft_kernel, pool_kernel, resnet_kernel,
                                rolloff_kernel, speech_kernels, tuning_kernel)
 from mec_tpu_torch.ops.quant import extract_static_scales
 from mec_tpu_torch.serving.engine import EmotionEngine
-from mec_tpu_torch.serving.synthetic_artifacts import (bert_variables,
-                                                       fusion_variables,
-                                                       image_variables,
-                                                       layer1_quant_params,
-                                                       make_vocab,
-                                                       speech_variables)
+from mec_tpu_torch.serving.synthetic_artifacts import (
+    bert_variables, forest_arrays, fusion_variables, image_variables,
+    layer1_quant_params, make_vocab, mobilenet_variables, speech_variables,
+    write_synthetic_artifacts)
 
 N = 66150
 
@@ -445,3 +456,79 @@ def test_trimodal_engine_on_cuda_matches_cpu(dev, monkeypatch):
                 p = np.sort(r[lo:lo + 7])
                 if p[-1] - p[-2] > band:
                     assert np.argmax(g[lo:lo + 7]) == np.argmax(r[lo:lo + 7])
+
+
+@pytest.mark.cuda
+def test_forest_walk_on_cuda_matches_cpu(dev):
+    arrays, meta = forest_arrays(seed=2)          # 100 trees, depth 12
+    x = np.random.RandomState(3).dirichlet(np.ones(7), (33, 3)).reshape(
+        33, 21).astype(np.float32)
+    out = {}
+    for d in ('cpu', dev):
+        t = forest_from_jax(arrays, d)
+        xt = torch.from_numpy(x).to(d)
+        out[str(d)] = (forest_leaves(t, xt, meta['depth']).cpu(),
+                       forest_apply(t, xt, meta['depth']).cpu())
+    (lc, pc), (lk, pk) = out['cpu'], out[str(dev)]
+    assert torch.equal(lc, lk)
+    assert (pc - pk).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size', [32, 224])
+def test_mobilenet_on_cuda_matches_cpu(dev, size):
+    tree, _ = mobilenet_variables(seed=1, image_size=size)
+    x = torch.from_numpy(np.random.RandomState(size).randn(
+        4, size, size, 3).astype(np.float32))
+    out = []
+    for d in ('cpu', dev):
+        model = MobileNetV2EmotionModel()
+        model.load_state_dict(mobilenet_state_from_jax(tree))
+        with torch.inference_mode():
+            out.append([t.cpu() for t in model.to(d).eval()(x.to(d))])
+    for a, b in zip(*out):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_models_dir_on_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    d = write_synthetic_artifacts(str(tmp_path), tiny=True,
+                                  image_arch='mobilenet_v2', image_size=64)
+    monkeypatch.setattr(Config, 'FUSION_MODE', 'rf')
+    waves = _waves(3, seed=4)
+    imgs = np.random.RandomState(6).randint(0, 256, (3, 64, 64, 3),
+                                            np.uint8)
+    texts = ['i am so happy today', 'this is sad', 'wow']
+    # bf16: chip_smoke.py's MOBILENET_BAND (tests/test_quant.py's band for
+    # MobileNetV2 in int8 against fp32)
+    for dtype, band in (('float32', 1e-4), ('bfloat16', 5e-2)):
+        cuda_engine = EmotionEngine.from_models_dir(d, compute_dtype=dtype)
+        assert cuda_engine.device.type == 'cuda'
+        assert cuda_engine._fusion_kind == 'rf'
+        cpu_engine = EmotionEngine.from_models_dir(d, compute_dtype=dtype,
+                                                   device='cpu')
+        if dtype == 'bfloat16':
+            assert cpu_engine._image_scales_cached
+            assert cpu_engine._bert_scales_cached
+        before = speech_kernels.speech_dnn.launches
+        got = cuda_engine._run_trimodal(waves, texts, imgs)
+        assert speech_kernels.speech_dnn.launches == before + (
+            dtype == 'bfloat16')
+        ref = cpu_engine._run_trimodal(waves, texts, imgs)
+        assert got.shape == (3, 28) and np.isfinite(got).all()
+        np.testing.assert_allclose(got[:, :21], ref[:, :21], atol=band)
+        xt = torch.from_numpy(np.ascontiguousarray(got[:, :21])).to(dev)
+        own = forest_apply(cuda_engine.forest['arrays'], xt,
+                           cuda_engine.forest['depth']).cpu().numpy()
+        np.testing.assert_allclose(got[:, 21:], own, atol=1e-6, rtol=0)
+        # rows whose walks park at the same leaves on both devices' s/t/i
+        # (a walk within the band of a threshold may flip) agree in fp32
+        arrays = cuda_engine.forest['arrays']
+        leaves = [forest_leaves(arrays, torch.from_numpy(
+            np.ascontiguousarray(r[:, :21])).to(dev),
+            cuda_engine.forest['depth']) for r in (got, ref)]
+        rows = (leaves[0] == leaves[1]).all(1).cpu().numpy()
+        if dtype == 'float32':
+            assert rows.any()
+            np.testing.assert_allclose(got[rows, 21:], ref[rows, 21:],
+                                       atol=1e-6, rtol=0)

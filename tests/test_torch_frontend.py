@@ -112,13 +112,15 @@ def test_port_never_imports_jax():
 
 def test_port_imports_without_jax_flax_msgpack_werkzeug():
     """Every module of the port imports in a process where jax, flax,
-    msgpack and werkzeug cannot be imported (the card's machine)."""
+    msgpack and werkzeug cannot be imported (the card's machine), nor
+    the reference's checkpoint readers (sklearn, h5py, safetensors)."""
     code = '''
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in ('jax', 'flax', 'msgpack', 'werkzeug',
-                                  'mec_tpu'):
+                                  'mec_tpu', 'sklearn', 'h5py',
+                                  'safetensors'):
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
 import mec_tpu_torch
