@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of mec_tpu_torch's serving paths on one NVIDIA GPU.
+"""Smoke test of mec_tpu_torch's serving and training paths on one
+NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -11,7 +12,9 @@ two, BERT-base in bf16 with int8 static encoder matmuls and the
 attention fusion in one device step; with MEC_DFT_PRECISION=highest the
 speech frontend is the framed one on kernel K5), and a models directory
 served through get_engine and the inference facades (MobileNetV2 at
-224 px and the random-forest fusion; K1-K4).
+224 px and the random-forest fusion; K1-K4); and training: the six
+trainers on the card, and the directory they write served (K2 in the
+speech trainer's dataset load; K1-K4, K6, K7 serving it).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
@@ -59,6 +62,37 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               the same engine on device='cpu' (given the card's scales)
               and an fp32 parity tri-modal engine against device='cpu'
               within 1e-4
+  6a. train   (a) the accuracy gates of the JAX end-to-end fixture
+              (tests/test_end_to_end.py:94-149) on the port's corpora
+              (training/corpora.py), each trainer on the card: speech
+              from a wav tree (12 epochs, > 0.85; its dataset load must
+              launch K2 once a chunk of 256 clips and K1, K3, K4 never),
+              Bi-LSTM (max_length 16, 8 epochs, > 0.40), tiny BERT
+              (hidden 64, 2 layers, 8 epochs, > 0.85), MobileNetV2 at 48
+              px (24 epochs, phase1_epochs 2, lr 1e-3, > 0.5), fusion
+              (600 rows, 6 epochs: its > 0.55 holds for the JAX
+              trainer's seed-42 stream only, so the mean over seeds
+              10-15 must reach the JAX trainer's mean there less three
+              standard errors, training/corpora.py; seed 42 is printed
+              beside 0.55); (b) full width, a few
+              optimizer steps each through the trainers' own steps and
+              optimizers: ms/step (median of CUDA-event steps after
+              warm-up), samples/s, peak device memory (and for BERT-base
+              fp32 and bf16 and ResNet50 phase 2 a profiled window: busy
+              share, device ops a step) for the speech
+              DNN B=64, the Bi-LSTM (vocab 10000, seq 128, B=32),
+              BERT-base B=16 seq 128 in fp32, bf16 (autocast) and fp32
+              with grad-accum 2 and remat, ResNet50 224 px B=32 (phase
+              1 and 2 in fp32, phase 2 in bf16), MobileNetV2 224 px B=32
+              and the fusion net B=64; the CLI once as a subprocess
+              (python -m mec_tpu_torch train-speech --epochs 1); (c) the
+              trained full-width speech DNN and Bi-LSTM of (a) and
+              BERT-base, ResNet50 and fusion net of (b) written to one
+              models directory, served by get_engine in bf16: K1-K4, K6,
+              K7 once per tri-modal dispatch, tri-modal and
+              predict_texts_lstm results within the bands of the cpu
+              engine on the same directory, the Bi-LSTM in fp32 within
+              1e-4
   6b. models  the port's writer makes a full-width models directory (speech
               DNN, BERT-base with config.json and vocab.txt, MobileNetV2 at
               224 px, the fusion net, a 100-tree depth-12 forest over 21
@@ -419,6 +453,330 @@ def bound(moved, ops, unit):
     if t_bytes >= t_ops:
         return t_bytes, 'bytes', 'memory'
     return t_ops, 'operations', unit
+
+
+# the train phase's accuracy gates: the JAX end-to-end fixture's sizes
+# and thresholds (tests/test_end_to_end.py:94-149) on the port's corpora
+GATES = {'speech': 0.85, 'lstm': 0.40, 'bert': 0.85, 'image': 0.5,
+         'fusion': 0.55}
+
+
+def step_times(label, card, state, train_step, batch, rows, idle,
+               profiled=False, steps=6):
+    """Median CUDA-event milliseconds of train_step(state, batch) over
+    `steps` calls after 3 warm-up calls, samples/s, the peak device
+    memory of those calls above `idle` (what the process held before the
+    model was built: the trainer's own parameters, optimizer state and
+    activations), and with `profiled` one profiled window (profile_step:
+    wall, device busy time and share, device ops a step, the kernel
+    taking the most time; ~10 s of host work a window, so only where it
+    decides something); printed with the card."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state.model.train()
+    for _ in range(3):
+        train_step(state, batch)
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(state, batch)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    ms = statistics.median(times)
+    peak = (torch.cuda.max_memory_allocated() - idle) / 2 ** 30
+    window = ''
+    if profiled:
+        wall, busy, share, ops, top = profile_step(
+            lambda: train_step(state, batch), steps=2)
+        # the profiler may lose a window's launches (phase 7's device_ms)
+        window = f'; profiled: wall {wall:.3f} ms, ' + (
+            f'device busy {busy:.3f} ms, busy share {share:.3f}, '
+            f'{ops:.0f} device ops/step, most: {top[0][0]} '
+            f'{top[0][1]:.3f} ms' if top else
+            'device busy not measured (the window lost its launches)')
+    print(f'train step {label}: {ms:.3f} ms/step (median of {steps} CUDA-'
+          f'event steps after 3 warm-up), {rows * 1e3 / ms:.1f} samples/s, '
+          f'peak memory {peak:.2f} GiB{window}; {card}')
+    return ms
+
+
+def train_phase(card, wrappers, speech_names, requests):
+    """6a. train: the accuracy gates, full-width step times, the CLI, and
+    the trained directory served on the card against the cpu."""
+    import shutil
+
+    import torch
+
+    from mec_tpu_torch.config import Config
+    from mec_tpu_torch.convert import store
+    from mec_tpu_torch.convert.to_jax import to_jax
+    from mec_tpu_torch.models.bert import BertForSequenceClassification
+    from mec_tpu_torch.models.bilstm import BiLSTMTextModel
+    from mec_tpu_torch.models.fusion import MultiModalFusionModel
+    from mec_tpu_torch.models.mobilenet import MobileNetV2EmotionModel
+    from mec_tpu_torch.models.resnet import ImageEmotionModel
+    from mec_tpu_torch.models.speech_dnn import SpeechDNN
+    from mec_tpu_torch.serving.engine import EmotionEngine, get_engine
+    from mec_tpu_torch.serving.synthetic_artifacts import make_vocab
+    from mec_tpu_torch.training import (common, corpora, train_fusion,
+                                        train_image, train_speech,
+                                        train_text_bert, train_text_lstm)
+    from mec_tpu_torch.training.train_text_bert import WIDTHS
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+    work = tempfile.TemporaryDirectory(prefix='chip_smoke_train_')
+    gate_dir = os.path.join(work.name, 'gate_models')
+
+    # a. the accuracy gates
+    acc = {}
+    speech_root = corpora.make_speech_corpus(
+        os.path.join(work.name, 'speech'), per_class=8)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    _v, scaler, hist = train_speech.train(
+        data_root=speech_root, epochs=12, batch_size=16,
+        models_dir=gate_dir, verbose=False, device='cuda')
+    counts = {name: w.launches for name, w in wrappers.items()}
+    n_clips = 8 * Config.NUM_EMOTIONS
+    chunks = -(-n_clips // 256)
+    for name, n in counts.items():
+        want = chunks if name == 'tuning_select' else 0
+        check(n == want, f'speech dataset load: {name} launched {n} times '
+              f'for {chunks} chunk(s) of {n_clips} clips (want {want})')
+    acc['speech'] = (max(hist['val_acc']), time.perf_counter() - t0)
+    print(f'train speech: {n_clips} wavs loaded through the parity '
+          f'frontend on the card in {chunks} chunk(s): launches {counts}')
+    texts, labels = corpora.make_text_corpus(per_class=12)
+    t0 = time.perf_counter()
+    _v, _tok, hist = train_text_lstm.train(
+        csv_path=None, texts=texts, labels=labels, epochs=8, batch_size=16,
+        max_length=16, models_dir=gate_dir, verbose=False, device='cuda')
+    acc['lstm'] = (max(hist['val_acc']), time.perf_counter() - t0)
+    tok = corpora.make_bert_tokenizer(texts)
+    tiny = dict(vocab_size=len(tok.vocab), hidden_size=64, num_layers=2,
+                num_heads=2, intermediate_size=128)
+    t0 = time.perf_counter()
+    _v, hist = train_text_bert.train(
+        csv_path=None, texts=texts, labels=labels, tokenizer=tok, epochs=8,
+        batch_size=16, max_length=16, learning_rate=5e-4, model_kwargs=tiny,
+        models_dir=os.path.join(gate_dir, 'bert_model'), verbose=False,
+        device='cuda')
+    acc['bert'] = (max(hist['val_acc']), time.perf_counter() - t0)
+    imgs, img_labels = corpora.make_image_corpus(img_size=48, per_class=12)
+    t0 = time.perf_counter()
+    _v, hist = train_image.train(
+        data_root=None, imgs=imgs, labels=img_labels, img_size=48, epochs=24,
+        phase1_epochs=2, batch_size=16, learning_rate=1e-3,
+        models_dir=gate_dir, verbose=False, arch='mobilenet_v2',
+        device='cuda')
+    acc['image'] = (max(hist['phase1']['val_acc'] + hist['phase2']['val_acc']),
+                    time.perf_counter() - t0)
+    dataset = train_fusion.generate_synthetic_data(
+        600, dims={'speech': 64, 'text': tiny['hidden_size'], 'image': 512})
+    t0 = time.perf_counter()
+    fusion_accs = {}
+    for seed in (42,) + corpora.FUSION_GATE_SEEDS:
+        _v, _cfg, hist = train_fusion.train(
+            dataset=dataset, epochs=6, batch_size=64, models_dir=gate_dir,
+            verbose=False, device='cuda', seed=seed)
+        fusion_accs[seed] = max(hist['val_acc'])
+    fusion_secs = time.perf_counter() - t0
+    for name, (a, secs) in acc.items():
+        print(f'train gate {name:6s}: best val_acc {a:.4f} > {GATES[name]} '
+              f'({secs:.1f} s on the card)')
+    for name, (a, _s) in acc.items():
+        check(a > GATES[name], f'train gate {name}: val_acc {a} <= '
+              f'{GATES[name]}')
+    # the fixture's fusion threshold is a property of the JAX trainer's
+    # seed-42 stream (corpora.JAX_FUSION_BEST_VAL_ACC): the port's
+    # trainer is held to the JAX trainer's distribution over seeds
+    seeds = corpora.FUSION_GATE_SEEDS
+    mean = float(np.mean([fusion_accs[s] for s in seeds]))
+    floor = corpora.fusion_gate_floor([fusion_accs[s] for s in seeds])
+    print(f'train gate fusion: best val_acc {fusion_accs[42]:.4f} at seed 42 '
+          f'(the fixture\'s threshold {GATES["fusion"]}, which the JAX '
+          f'trainer meets at its seed-42 stream and at 2 of 20 other seeds; '
+          f'not enforced); at seeds {seeds[0]}-{seeds[-1]} '
+          + ', '.join(f'{fusion_accs[s]:.4f}' for s in seeds)
+          + f': mean {mean:.4f} >= {floor:.4f} (the JAX trainer\'s mean '
+          f'{np.mean(corpora.JAX_FUSION_BEST_VAL_ACC):.4f} less 3 standard '
+          f'errors) ({fusion_secs:.1f} s on the card for {len(fusion_accs)} '
+          f'runs)')
+    check(mean >= floor, f'train gate fusion: mean best val_acc {mean} over '
+          f'seeds {seeds} < {floor}')
+
+    # b. full width, a few optimizer steps each
+    serve_dir = os.path.join(work.name, 'serve_models')
+    os.makedirs(os.path.join(serve_dir, 'bert_model'))
+    rng = torch.Generator(device='cuda').manual_seed(0)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, device=dev, generator=rng)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=rng)
+
+    def state_of(model, tx):
+        return common.TrainState(common.flax_init(model, 0).to(dev), tx)
+
+    def onehot(labels):
+        return torch.nn.functional.one_hot(labels, 7).float()
+
+    torch.cuda.empty_cache()
+    idle = torch.cuda.memory_allocated()
+    print(f'train steps: {idle / 2 ** 30:.2f} GiB held by the process before '
+          f'the models are built (each peak below is above it)')
+
+    st = state_of(SpeechDNN(), common.adam_with_clip(1e-3))
+    step_times('speech dnn B=64 fp32', card, st,
+               train_speech.make_steps(st.model)[0],
+               {'x': randn(64, 56), 'label': onehot(randint(7, 64))}, 64,
+               idle)
+    st = state_of(BiLSTMTextModel(), common.adam_with_clip(1e-3))
+    step_times('bi-lstm vocab 10000 seq 128 B=32 fp32', card, st,
+               train_text_lstm.make_steps(st.model)[0],
+               {'ids': randint(10000, 32, 128), 'label': randint(7, 32)}, 32,
+               idle)
+    text_batch = {'ids': randint(30522, 16, 128),
+                  'mask': torch.ones(16, 128, dtype=torch.int32, device=dev),
+                  'label': randint(7, 16)}
+    sched = common.cosine_decay_schedule(2e-5, 100)
+    for label, bf16, accum, remat in (('fp32', False, 1, False),
+                                      ('bf16', True, 1, False),
+                                      ('fp32 grad-accum 2 remat', False, 2,
+                                       True)):
+        tx = common.adamw_with_clip(sched)
+        if accum > 1:
+            tx = common.multi_steps(tx, accum)
+        st = state_of(BertForSequenceClassification(remat=remat), tx)
+        ms = step_times(f'bert-base 12x768 B=16 seq 128 {label}'
+                        + (' (per micro-step)' if accum > 1 else ''), card,
+                        st, train_text_bert.make_steps(st.model, bf16)[0],
+                        text_batch, 16, idle, profiled=accum == 1)
+        if accum > 1:
+            print(f'train step bert-base grad-accum 2: {2 * ms:.3f} ms per '
+                  f'optimizer update of 32 samples; {card}')
+        if label == 'fp32':
+            st.model.eval()
+            store.save_params(os.path.join(serve_dir, 'bert_model',
+                                           'bert_model.mecp'),
+                              to_jax(st.model), meta={'val_acc': 0.0})
+        del st
+        torch.cuda.empty_cache()
+    with open(os.path.join(serve_dir, 'bert_model', 'config.json'), 'w') as f:
+        json.dump({c: d for _k, (c, d) in WIDTHS.items()}, f)
+    vocab = make_vocab()
+    with open(os.path.join(serve_dir, 'bert_model', 'vocab.txt'), 'w') as f:
+        f.write('\n'.join(sorted(vocab, key=vocab.get)))
+    img_batch = {'img': randint(256, 32, 224, 224, 3).to(torch.uint8),
+                 'label': randint(7, 32)}
+    for arch, label, tx, bf16 in (
+            ('resnet50', 'phase 1 (frozen backbone) fp32',
+             train_image.make_tx(1e-4, 1e-3, True), False),
+            ('resnet50', 'phase 2 fp32', common.adamw_with_clip(sched), False),
+            ('resnet50', 'phase 2 bf16', common.adamw_with_clip(sched), True),
+            ('mobilenet_v2', 'phase 2 fp32', common.adamw_with_clip(sched),
+             False)):
+        st = state_of(train_image.ARCHS[arch](), tx)
+        step_times(f'{arch} 224 px B=32 {label}', card, st,
+                   train_image.make_steps(st.model, bf16)[0], img_batch, 32,
+                   idle, profiled=label.startswith('phase 2')
+                   and arch == 'resnet50')
+        if arch == 'resnet50' and label == 'phase 2 fp32':
+            st.model.eval()
+            store.save_params(os.path.join(serve_dir, 'image_model.mecp'),
+                              to_jax(st.model),
+                              meta={'val_acc': 0.0, 'arch': arch,
+                                    'img_size': 224})
+        del st
+        torch.cuda.empty_cache()
+    cfg = {'speech_dim': 64, 'text_dim': 768, 'image_dim': 512,
+           'num_classes': 7, 'hidden_dim': 256}
+    st = state_of(MultiModalFusionModel(**cfg), common.adamw_with_clip(sched))
+    probs = torch.softmax(randn(3, 64, 7), dim=-1)
+    step_times('fusion B=64 fp32', card, st,
+               train_fusion.make_steps(st.model)[0],
+               {'s_feat': randn(64, 64), 't_feat': randn(64, 768),
+                'i_feat': randn(64, 512), 's_pred': probs[0],
+                't_pred': probs[1], 'i_pred': probs[2],
+                'label': randint(7, 64)}, 64, idle)
+    st.model.eval()
+    store.save_params(os.path.join(serve_dir, 'fusion_model.mecp'),
+                      to_jax(st.model), meta={'config': cfg, 'val_acc': 0.0})
+    del st
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cli_dir = os.path.join(work.name, 'cli_models')
+    cli = subprocess.run(
+        [sys.executable, '-m', 'mec_tpu_torch', 'train-speech', '--data-root',
+         speech_root, '--epochs', '1', '--batch-size', '16', '--models-dir',
+         cli_dir], cwd=HERE, capture_output=True, text=True, timeout=300)
+    check(cli.returncode == 0 and sorted(os.listdir(cli_dir))
+          == ['speech_model.mecp', 'speech_scaler.npz'],
+          f'python -m mec_tpu_torch train-speech failed: {cli.stderr[-2000:]}')
+    print(f'train cli: python -m mec_tpu_torch train-speech --epochs 1 '
+          f'(device cuda) wrote {sorted(os.listdir(cli_dir))} in '
+          f'{time.perf_counter() - t0:.1f} s')
+
+    # c. serve the trained directory: the full-width speech DNN and Bi-LSTM
+    # of the gates (their default widths are the full ones) beside
+    # BERT-base, ResNet50 and the fusion net of the step timings
+    for f in ('speech_model.mecp', 'speech_scaler.npz', 'text_model.mecp',
+              'text_model_tokenizer.json'):
+        shutil.copy(os.path.join(gate_dir, f), os.path.join(serve_dir, f))
+    saved = Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION
+    Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = \
+        'attention', 'bfloat16', 'high'
+    try:
+        eng = get_engine(serve_dir, reload=True, device='cuda')
+        check(eng._all_live and eng.lstm is not None
+              and eng._fusion_kind == 'attention'
+              and eng._image_arch == 'resnet50', 'the trained directory did '
+              'not load every model')
+        for w in wrappers.values():
+            w.launches = 0
+        got = [eng.predict_multimodal(**r) for r in requests[:4]]
+        counts = {name: w.launches for name, w in wrappers.items()}
+        for name, n in counts.items():
+            want = 0 if name == 'dft_spectrograms' else 4
+            check(n == want, f'trained dir: {name} launched {n} times in 4 '
+                  f'tri-modal dispatches (want {want})')
+        lstm_got = eng.predict_texts_lstm(TEXTS)
+        cpu = EmotionEngine.from_models_dir(serve_dir, device='cpu')
+        check(cpu._image_scales_cached and cpu._bert_scales_cached,
+              'the cpu engine did not take the card\'s scales')
+        ref = [cpu.predict_multimodal(**r) for r in requests[:4]]
+        errs = {}
+        for mod, band in (('speech', SPEECH_BAND), ('text', TRI_BAND),
+                          ('image', IMAGE_BAND), ('fusion', TRI_BAND)):
+            errs[mod] = check_results([g[mod] for g in got],
+                                      [r[mod] for r in ref], band,
+                                      f'trained dir bf16 {mod}')
+        errs['lstm bf16'] = check_results(lstm_got,
+                                          cpu.predict_texts_lstm(TEXTS),
+                                          TRI_BAND, 'trained dir bf16 lstm')
+        Config.COMPUTE_DTYPE = 'float32'
+        e32 = EmotionEngine.from_models_dir(serve_dir, device='cuda')
+        c32 = EmotionEngine.from_models_dir(serve_dir, device='cpu')
+        errs['lstm fp32'] = check_results(e32.predict_texts_lstm(TEXTS),
+                                          c32.predict_texts_lstm(TEXTS),
+                                          1e-4, 'trained dir fp32 lstm')
+        print(f'train serve: get_engine on the trained directory (bf16, '
+              f'int8 static BERT-base and ResNet50, the Bi-LSTM): launches '
+              f'in 4 tri-modal dispatches {counts}; agreement with the cpu '
+              f'engine ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
+        del eng, cpu, e32, c32
+    finally:
+        Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = saved
+    work.cleanup()
+    torch.cuda.empty_cache()
+    print(f'train phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
 
 
 def main():
@@ -1022,6 +1380,9 @@ def main():
         ids, mask = eng._to_device(eng._text_wire(texts, B))
         return (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids, mask,
                 eng._to_device(eng._wire_image(tri_pics[:B], B)))
+
+    # ----------------------------------------------------------- 6a train
+    train_phase(card, wrappers, speech_names, requests)
 
     # ---------------------------------------------------------- 6b models
     from mec_tpu_torch.convert import store

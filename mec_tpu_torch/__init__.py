@@ -6,8 +6,9 @@ against it by the tests in tests/test_torch_*.py. This package imports
 torch and never jax: the machine that runs it on the card has no jax,
 flax, msgpack or werkzeug, so the numpy-only host modules it needs
 (config, filters, wav, the batcher, fold, quant, image preprocessing,
-text cleaning and the WordPiece tokenizer) are small copies pinned to
-their originals by tests.
+text cleaning, the WordPiece and Keras tokenizers, the training
+metrics, loaders and corpora) are small copies pinned to their
+originals by tests.
 
 What is ported so far:
 
@@ -29,7 +30,12 @@ What is ported so far:
 * MobileNetV2 as the image model, in the same three forms as ResNet50;
 * a models directory of the JAX package's .mecp artifacts, read and
   written without flax or msgpack, served through get_engine and the
-  reference-API facades (inference/).
+  reference-API facades (inference/), the Bi-LSTM text model included;
+* training: the six trainers (speech, Bi-LSTM, BERT, ResNet50 /
+  MobileNetV2, attention fusion, random-forest fusion) over one fit
+  loop with optax's optimizers, Flax's BatchNorm update and resumable
+  checkpoints, writing the JAX trainers' artifacts; `python -m
+  mec_tpu_torch train-...`.
 
 All seven TPU Pallas kernels are rewritten as CUDA C++ kernels for
 sm_90a (csrc/, built at first use by ops/_build.py): K1 mfcc_mean, K2
@@ -42,17 +48,21 @@ Package layout:
               numpy filter tables, WAV decode, BN fold, int8 quantization,
               the nvcc build
   csrc/       the hand-written CUDA kernels
-  models/     SpeechDNN, BERT, ResNet50, MobileNetV2, the fusion net,
-              the forest walk, QuantConv and QuantDense (plain
-              nn.Modules and torch ops)
+  models/     SpeechDNN, the Bi-LSTM, BERT, ResNet50, MobileNetV2, the
+              fusion net, the forest walk, QuantConv and QuantDense
+              (plain nn.Modules and torch ops; built in eval mode, with
+              training forwards), Flax's BatchNorm step and remat
   image/      image decode and the ImageNet constants
-  text/       text cleaning and the WordPiece tokenizer
+  text/       text cleaning, the WordPiece and Keras tokenizers
   convert/    the .mecp reader and writer, the HF config.json widths,
-              JAX (Flax numpy tree) -> port parameters
+              JAX (Flax numpy tree) <-> port parameters
+  training/   the fit loop, optimizers, checkpoints, loaders, synthetic
+              corpora and the six trainers
   serving/    wire codecs, engine (and get_engine), micro-batcher,
               synthetic parameters and models directories
   inference/  the reference-API facades over get_engine
   utils/      StageTimer
+  __main__    python -m mec_tpu_torch: the train commands
 """
 
 import torch

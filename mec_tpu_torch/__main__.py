@@ -1,0 +1,86 @@
+"""Command-line front door: ``python -m mec_tpu_torch <command> [args...]``.
+
+The port of mec_tpu/__main__.py's dispatcher, with its six train
+commands; each trainer module has main(argv) taking the JAX trainer's
+flags plus --device (default cuda). Dispatch is lazy: only the selected
+command's module is imported. The JAX package's other commands are not
+ported yet, and the dispatcher names the ROADMAP.md queue A item that
+holds each.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+from typing import List, Optional
+
+# command -> (module with main(argv), one-line help)
+_COMMANDS = {
+    'train-speech': ('mec_tpu_torch.training.train_speech',
+                     'train the 5-block speech DNN on a wav tree'),
+    'train-text-bert': ('mec_tpu_torch.training.train_text_bert',
+                        'fine-tune BERT on a labeled text CSV'),
+    'train-text-lstm': ('mec_tpu_torch.training.train_text_lstm',
+                        'train the Bi-LSTM text variant'),
+    'train-image': ('mec_tpu_torch.training.train_image',
+                    'train ResNet50 / MobileNetV2 on an image tree'),
+    'train-fusion': ('mec_tpu_torch.training.train_fusion',
+                     'train the attention fusion net (synthetic or '
+                     '--manifest real triples)'),
+    'train-fusion-rf': ('mec_tpu_torch.training.train_fusion_rf',
+                        'train the random-forest fusion variant (sklearn)'),
+}
+
+# the JAX package's commands that are not ported, with their queue item
+_NOT_PORTED = {
+    'serve': 'A14 (the serve CLI: the web app needs werkzeug and imports '
+             'jax)',
+    'convert': 'A21 (the checkpoint converters)',
+    'download': 'A13 (no device work; run python -m mec_tpu download)',
+    'organize': 'A13 (no device work; run python -m mec_tpu organize)',
+}
+
+
+def _usage() -> str:
+    width = max(len(name) for name in list(_COMMANDS) + list(_NOT_PORTED))
+    lines = [f'  {name:<{width}}  {help_}'
+             for name, (_mod, help_) in _COMMANDS.items()]
+    lines += [f'  {name:<{width}}  not ported yet: ROADMAP.md queue A '
+              f'item {item}' for name, item in _NOT_PORTED.items()]
+    return ('usage: python -m mec_tpu_torch <command> [args...]\n\n'
+            'commands:\n' + '\n'.join(lines) +
+            "\n\nRun 'python -m mec_tpu_torch <command> --help' for that "
+            "command's arguments.")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(_usage(), file=sys.stderr)
+        return 2
+    if argv[0] in ('-h', '--help', 'help'):
+        print(_usage())
+        return 0
+    if argv[0] == '--version':
+        from mec_tpu_torch import __version__
+        print(__version__)
+        return 0
+    cmd = argv[0]
+    if cmd in _NOT_PORTED:
+        print(f'mec_tpu_torch: {cmd!r} is not ported yet: ROADMAP.md queue '
+              f'A item {_NOT_PORTED[cmd]}', file=sys.stderr)
+        return 2
+    entry = _COMMANDS.get(cmd)
+    if entry is None:
+        close = [n for n in _COMMANDS if n.startswith(cmd.split('-')[0])]
+        hint = f" (did you mean: {', '.join(close)}?)" if close else ''
+        print(f'mec_tpu_torch: unknown command {cmd!r}{hint}\n\n' + _usage(),
+              file=sys.stderr)
+        return 2
+    mod = importlib.import_module(entry[0])
+    rc = mod.main(argv[1:])
+    return 0 if rc is None else int(rc)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

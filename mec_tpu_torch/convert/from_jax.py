@@ -18,7 +18,16 @@ and models.mobilenet.MobileNetV2EmotionModel (live BN, BN-folded or
 int8), models.bert.BertForSequenceClassification (plain or int8) and
 models.fusion.MultiModalFusionModel.
 
+Bi-LSTM: lstm_state_from_jax -> models.bilstm.BiLSTMTextModel: each
+Flax BiLSTM {forward, backward} pair of KerasLSTMs {kernel (D, 4u),
+recurrent_kernel (u, 4u), bias} becomes one bidirectional nn.LSTM
+(weight_ih_l0 = kernel.T, weight_hh_l0 = recurrent_kernel.T, bias_ih_l0
+= bias, bias_hh_l0 = 0; the backward direction under *_reverse).
+
 Forest: forest_from_jax -> the tables of models.forest.forest_apply.
+
+state_dict_from_jax picks the converter by the module's class, and
+convert/to_jax.py inverts all of them.
 """
 
 from __future__ import annotations
@@ -120,6 +129,40 @@ def state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
 # -> models.fusion.MultiModalFusionModel.
 image_state_from_jax = mobilenet_state_from_jax = bert_state_from_jax = \
     fusion_state_from_jax = state_from_jax
+
+
+def lstm_state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """Flax BiLSTMTextModel variables -> models.bilstm.BiLSTMTextModel
+    state dict."""
+    p = dict(variables['params'])
+    state = {}
+    for layer in ('bilstm_1', 'bilstm_2'):
+        for direction, suffix in (('forward', ''), ('backward', '_reverse')):
+            node = p[layer][direction]
+            pre = f'{layer}.'
+            state[pre + 'weight_ih_l0' + suffix] = _t(
+                np.asarray(node['kernel']).T)
+            state[pre + 'weight_hh_l0' + suffix] = _t(
+                np.asarray(node['recurrent_kernel']).T)
+            state[pre + 'bias_ih_l0' + suffix] = _t(node['bias'])
+            state[pre + 'bias_hh_l0' + suffix] = torch.zeros(
+                np.shape(node['bias']))
+        del p[layer]
+    state.update(state_from_jax({'params': p}))
+    return state
+
+
+def state_dict_from_jax(model: torch.nn.Module, variables: Dict
+                        ) -> Dict[str, torch.Tensor]:
+    """The state dict of `model` (any of the port's models) from the
+    JAX package's tree of the same architecture."""
+    from mec_tpu_torch.models.bilstm import BiLSTMTextModel
+    from mec_tpu_torch.models.speech_dnn import SpeechDNN
+    if isinstance(model, SpeechDNN):
+        return speech_state_from_jax(variables)
+    if isinstance(model, BiLSTMTextModel):
+        return lstm_state_from_jax(variables)
+    return state_from_jax(variables)
 
 
 def forest_from_jax(arrays: Dict, device='cpu') -> Dict[str, torch.Tensor]:

@@ -25,8 +25,14 @@ With quant=True (bf16 serving) the six encoder matmuls of every layer
 are models.qconv.QuantDense (int8, per-token dynamic or calibrated
 static activation scales). Module names follow the Flax tree, so
 convert/from_jax.bert_state_from_jax maps it one to one. Not ported:
-the MoE FFN, remat and sequence parallelism (ROADMAP queue A items 11
-and 12) and dropout (inference only).
+the MoE FFN and sequence parallelism (ROADMAP queue A item 12).
+
+Training (module.training, the unquantized form): dropout_rate (HF's
+hidden_dropout_prob, 0.1) after the embeddings' LayerNorm and after the
+pooler's tanh, where the Flax model has its two dropouts, and with
+remat=True each encoder layer is recomputed in the backward pass
+(torch.utils.checkpoint, as nn.remat). For bf16 training the caller
+runs the fp32 model under torch.autocast.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mec_tpu_torch.models.batchnorm import remat as remat_layer
 from mec_tpu_torch.models.qconv import QuantDense
 
 
@@ -130,9 +137,11 @@ class BertForSequenceClassification(nn.Module):
                  type_vocab_size: int = 2, num_classes: int = 7,
                  dtype: torch.dtype = torch.float32,
                  gelu_approximate: bool = False, quant: bool = False,
-                 quant_mode: str = 'dynamic'):
+                 quant_mode: str = 'dynamic', dropout_rate: float = 0.1,
+                 remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
+        self.dropout = nn.Dropout(dropout_rate)
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size,
                                             dtype=dtype)
         self.position_embeddings = nn.Embedding(max_position, hidden_size,
@@ -150,6 +159,7 @@ class BertForSequenceClassification(nn.Module):
         # the f32 minimum, cast where the mask is built: -inf in bf16
         self.register_buffer('neg', torch.tensor(
             torch.finfo(torch.float32).min), persistent=False)
+        self.eval()    # the Flax models' train=False default
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,11 +170,13 @@ class BertForSequenceClassification(nn.Module):
         pos = torch.arange(L, device=ids.device)
         h = (self.word_embeddings(ids) + self.position_embeddings(pos)[None]
              + self.token_type_embeddings(torch.zeros_like(ids)))
-        h = self.embeddings_norm(h)
+        h = self.dropout(self.embeddings_norm(h))
         bias = ((1.0 - attention_mask.float()) * self.neg).to(self.dtype)
         for i in range(self.num_layers):
-            h = getattr(self, f'layer_{i}')(h, bias)
+            layer = getattr(self, f'layer_{i}')
+            h = (remat_layer(layer, h, bias) if self.remat and self.training
+                 else layer(h, bias))
         cls = h[:, 0, :]
-        pooled = torch.tanh(self.pooler(cls))
+        pooled = self.dropout(torch.tanh(self.pooler(cls)))
         logits = self.classifier(pooled)
         return logits.float(), cls.float()

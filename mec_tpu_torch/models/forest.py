@@ -23,8 +23,9 @@ thresholds define the walk exactly.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 
@@ -56,3 +57,55 @@ def forest_apply(arrays: Dict[str, torch.Tensor], x: torch.Tensor,
     proba = arrays['proba']
     tree = torch.arange(proba.shape[0], device=x.device)
     return proba[tree, leaves].mean(dim=1)
+
+
+def from_sklearn(rf) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Fitted sklearn RandomForestClassifier -> (arrays, meta).
+
+    meta carries the static bits: 'depth' (trace constant), 'n_features',
+    'n_classes', and the fitted class order ('classes').
+    """
+    trees = [est.tree_ for est in rf.estimators_]
+    if not trees:
+        raise ValueError('forest has no fitted trees')
+    N = max(t.node_count for t in trees)
+    T = len(trees)
+    C = int(rf.n_classes_)
+    feature = np.zeros((T, N), np.int32)
+    threshold = np.zeros((T, N), np.float64)
+    left = np.zeros((T, N), np.int32)
+    right = np.zeros((T, N), np.int32)
+    proba = np.zeros((T, N, C), np.float32)
+    depth = 1
+    for i, t in enumerate(trees):
+        n = t.node_count
+        is_leaf = t.children_left[:n] == -1
+        feature[i, :n] = np.where(is_leaf, 0, t.feature[:n])
+        threshold[i, :n] = np.where(is_leaf, 0.0, t.threshold[:n])
+        # leaves (and padding, below) self-loop so deeper iterations hold
+        nodes = np.arange(n)
+        left[i, :n] = np.where(is_leaf, nodes, t.children_left[:n])
+        right[i, :n] = np.where(is_leaf, nodes, t.children_right[:n])
+        left[i, n:] = right[i, n:] = np.arange(n, N)
+        counts = t.value[:n].reshape(n, C).astype(np.float64)
+        # sklearn >=1.3 stores value as weighted fractions already
+        # normalized per node; normalize defensively either way
+        sums = counts.sum(axis=1, keepdims=True)
+        proba[i, :n] = np.divide(counts, np.where(sums == 0, 1.0, sums)
+                                 ).astype(np.float32)
+        depth = max(depth, int(t.max_depth))
+    # sklearn compares float32 inputs against float64 thresholds
+    # (midpoints of adjacent float32 feature values). For float32 x,
+    # `x <= t64` is equivalent to `x <= floor32(t64)` where floor32
+    # rounds t64 DOWN to the nearest float32 — round-to-nearest could
+    # land above t64 and flip a boundary decision the other way.
+    t32 = threshold.astype(np.float32)
+    above = t32.astype(np.float64) > threshold
+    t32[above] = np.nextafter(t32[above], np.float32(-np.inf),
+                              dtype=np.float32)
+    arrays = {'feature': feature, 'threshold': t32,
+              'left': left, 'right': right, 'proba': proba}
+    meta = {'kind': 'random_forest', 'depth': int(depth),
+            'n_features': int(rf.n_features_in_), 'n_classes': C,
+            'classes': [int(c) for c in rf.classes_]}
+    return arrays, meta

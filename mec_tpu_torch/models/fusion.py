@@ -20,7 +20,9 @@ in_proj_bias are raw parameters that the serving engine keeps in fp32,
 so in bf16 serving the q/k/v projections, scores and context are fp32
 (bf16 inputs promoted), and only the out-projection (a Dense) is bf16.
 Module names follow the Flax tree (convert/from_jax.fusion_state_from_jax).
-Dropout is identity at inference and not ported.
+In training mode the Flax model's dropouts apply: 0.3 after each
+projection's ReLU, 0.1 on each cross-modal attention output before its
+residual, 0.4 and 0.3 after the classifier's two hidden ReLUs.
 """
 
 from __future__ import annotations
@@ -71,21 +73,23 @@ class CrossModalAttention(nn.Module):
         super().__init__()
         self.attention = TorchMultiheadAttention(hidden, num_heads, dtype)
         self.norm = LayerNorm(hidden, EPS, dtype)
+        self.dropout = nn.Dropout(0.1)
 
     def forward(self, query: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
-        return self.norm(query + self.attention(query, kv))
+        return self.norm(query + self.dropout(self.attention(query, kv)))
 
 
 class Projection(nn.Module):
-    """Dense -> LayerNorm -> ReLU."""
+    """Dense -> LayerNorm -> ReLU -> Dropout(0.3)."""
 
     def __init__(self, din: int, hidden: int, dtype: torch.dtype):
         super().__init__()
         self.linear = Dense(din, hidden, dtype=dtype)
         self.norm = LayerNorm(hidden, EPS, dtype)
+        self.dropout = nn.Dropout(0.3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.norm(self.linear(x)))
+        return self.dropout(F.relu(self.norm(self.linear(x))))
 
 
 class AttentionFusion(nn.Module):
@@ -127,6 +131,9 @@ class MultiModalFusionModel(nn.Module):
         self.classifier_norm = LayerNorm(h, EPS, dtype)
         self.classifier_1 = Dense(h, h // 2, dtype=dtype)
         self.classifier_2 = Dense(h // 2, num_classes, dtype=dtype)
+        self.dropout_0 = nn.Dropout(0.4)
+        self.dropout_1 = nn.Dropout(0.3)
+        self.eval()    # the Flax models' train=False default
 
     def forward(self, speech_feat, text_feat, image_feat,
                 speech_pred, text_pred, image_pred):
@@ -149,7 +156,7 @@ class MultiModalFusionModel(nn.Module):
                     ).sum(dim=1)
 
         x = torch.cat([fused, weighted], dim=-1)
-        x = F.relu(self.classifier_norm(self.classifier_0(x)))
-        x = F.relu(self.classifier_1(x))
+        x = self.dropout_0(F.relu(self.classifier_norm(self.classifier_0(x))))
+        x = self.dropout_1(F.relu(self.classifier_1(x)))
         logits = self.classifier_2(x)
         return logits.float(), attention_weights, decision_weights

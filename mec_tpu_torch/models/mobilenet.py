@@ -30,6 +30,9 @@ the Flax tree. Three forms, one per serving mode:
 Biases are added after the conv or matmul in the compute dtype, and the
 global mean is taken in f32 and cast back, as Flax does. No kernel is
 hand-written here: the JAX package computes MobileNetV2 outside Pallas.
+Training (module.training, the live-BN form only) is ResNet50's:
+Flax's BatchNorm step (momentum 0.9), head dropouts 0.5 and 0.3, and
+with remat=True each inverted residual recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mec_tpu_torch.models.batchnorm import remat
 from mec_tpu_torch.models.qconv import QuantConv
 from mec_tpu_torch.models.resnet import BN_EPS, BatchNormNHWC, ConvNHWC
 
@@ -102,12 +106,13 @@ class InvertedResidual(nn.Module):
 class MobileNetV2EmotionModel(nn.Module):
     def __init__(self, num_classes: int = 7,
                  dtype: torch.dtype = torch.float32, fold_bn: bool = False,
-                 quant: bool = False, quant_mode: str = 'dynamic'):
+                 quant: bool = False, quant_mode: str = 'dynamic',
+                 remat: bool = False):
         super().__init__()
         if quant and not fold_bn:
             raise ValueError('quant requires fold_bn (BN-folded params)')
         self.dtype, self.fold_bn = dtype, fold_bn
-        self.quant, self.quant_mode = quant, quant_mode
+        self.quant, self.quant_mode, self.remat = quant, quant_mode, remat
         _conv(self, 'conv_stem', 3, 32, 3, 2)
         self.blocks = []
         idx, cin = 1, 32
@@ -123,15 +128,23 @@ class MobileNetV2EmotionModel(nn.Module):
         _conv(self, 'conv_head', cin, 1280, 1, quant=quant)
         self.fc1 = nn.Linear(1280, 512, dtype=dtype)
         self.fc2 = nn.Linear(512, num_classes, dtype=dtype)
+        self.dropout_1 = nn.Dropout(0.5)
+        self.dropout_2 = nn.Dropout(0.3)
+        self.eval()    # the Flax models' train=False default
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, 3) ImageNet-normalized NHWC (H, W >= 32) ->
         (logits (B, 7) f32, head features (B, 512) f32)."""
+        if self.training and self.fold_bn:
+            raise ValueError('fold_bn is inference-only')
         x = F.relu6(_apply(self, 'conv_stem', x.to(self.dtype)))
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            blk = getattr(self, name)
+            x = remat(blk, x) if self.remat and self.training else blk(x)
         x = F.relu6(_apply(self, 'conv_head', x))
         x = x.float().mean(dim=(1, 2)).to(self.dtype)
+        x = self.dropout_1(x)
         feat = F.relu(F.linear(x, self.fc1.weight) + self.fc1.bias)
-        logits = F.linear(feat, self.fc2.weight) + self.fc2.bias
+        logits = (F.linear(self.dropout_2(feat), self.fc2.weight)
+                  + self.fc2.bias)
         return logits.float(), feat.float()

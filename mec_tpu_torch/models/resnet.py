@@ -23,8 +23,16 @@ Biases are added after the conv or matmul in the compute dtype, and the
 global mean is taken in f32 and cast back, as Flax does. In bf16 the
 stem pool is K6 (ops/pool_kernel.max_pool_3x3s2) and, with static int8,
 layer1 is K7 (ops/resnet_kernel.layer1); on the CPU both run their
-plain versions, on CUDA their kernels. The inference-only model: no
-training forward is ported.
+plain versions, on CUDA their kernels.
+
+Training (module.training, the live-BN form only; the folded and int8
+forms raise): the BatchNorms normalise with the batch statistics and
+take Flax's update (models/batchnorm.train_batch_norm, momentum 0.9),
+the stem pool is F.max_pool2d (K6 and K7 have no backward; Flax trains
+through nn.max_pool), the head's dropouts are 0.5 before fc1 and 0.3
+before fc2, and with remat=True each bottleneck is recomputed in the
+backward pass (models/batchnorm.remat). For bf16 training the caller
+runs the fp32 model under torch.autocast.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mec_tpu_torch.models.batchnorm import remat, train_batch_norm
 from mec_tpu_torch.models.qconv import QuantConv
 from mec_tpu_torch.ops import pool_kernel, resnet_kernel
 
@@ -53,9 +62,12 @@ class ConvNHWC(nn.Conv2d):
 
 
 class BatchNormNHWC(nn.BatchNorm2d):
-    """Inference BatchNorm (running statistics) on NHWC activations."""
+    """BatchNorm on NHWC activations: the running statistics in eval
+    mode, Flax's training step in training mode."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return train_batch_norm(self, x)
         y = F.batch_norm(x.permute(0, 3, 1, 2).float(), self.running_mean,
                          self.running_var, self.weight, self.bias, False,
                          0.0, self.eps)
@@ -112,12 +124,13 @@ class ImageEmotionModel(nn.Module):
     def __init__(self, num_classes: int = 7,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  dtype: torch.dtype = torch.float32, fold_bn: bool = False,
-                 quant: bool = False, quant_mode: str = 'dynamic'):
+                 quant: bool = False, quant_mode: str = 'dynamic',
+                 remat: bool = False):
         super().__init__()
         if quant and not fold_bn:
             raise ValueError('quant requires fold_bn (BN-folded params)')
         self.dtype, self.fold_bn = dtype, fold_bn
-        self.quant, self.quant_mode = quant, quant_mode
+        self.quant, self.quant_mode, self.remat = quant, quant_mode, remat
         self.conv1 = ConvNHWC(3, 64, 7, 2, 3, bias=fold_bn, dtype=dtype)
         if not fold_bn:
             self.bn1 = BatchNormNHWC(64, eps=BN_EPS)
@@ -137,15 +150,20 @@ class ImageEmotionModel(nn.Module):
             self.stages.append(names)
         self.fc1 = nn.Linear(cin, 512, dtype=dtype)
         self.fc2 = nn.Linear(512, num_classes, dtype=dtype)
+        self.dropout_1 = nn.Dropout(0.5)
+        self.dropout_2 = nn.Dropout(0.3)
+        self.eval()    # the Flax models' train=False default
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, H, W, 3) normalized NHWC -> (logits (B, 7) f32,
         head features (B, 512) f32)."""
+        if self.training and self.fold_bn:
+            raise ValueError('fold_bn is inference-only')
         x = self.conv1(x.to(self.dtype))
         if not self.fold_bn:
             x = self.bn1(x)
         x = F.relu(x).contiguous()
-        if self.dtype == torch.bfloat16:
+        if self.dtype == torch.bfloat16 and not self.training:
             x = pool_kernel.max_pool_3x3s2(x)
         else:
             x = pool_kernel.max_pool_3x3s2_plain(x)
@@ -156,8 +174,10 @@ class ImageEmotionModel(nn.Module):
                 x = resnet_kernel.layer1(x, blocks)
                 continue
             for blk in blocks:
-                x = blk(x)
+                x = remat(blk, x) if self.remat and self.training else blk(x)
         x = x.float().mean(dim=(1, 2)).to(self.dtype)
+        x = self.dropout_1(x)
         feat = F.relu(F.linear(x, self.fc1.weight) + self.fc1.bias)
-        logits = F.linear(feat, self.fc2.weight) + self.fc2.bias
+        logits = (F.linear(self.dropout_2(feat), self.fc2.weight)
+                  + self.fc2.bias)
         return logits.float(), feat.float()

@@ -41,17 +41,19 @@ the heuristic ladder; text: the keyword map; image: neutral; fusion:
 the weighted average), and an undecodable upload takes the reference's
 fallback ladder (speech: that request; image: the whole batch; a
 tri-modal request: per-modality results and the weighted fusion), as
-the JAX engine does. Not ported: the Bi-LSTM text model; with its
-artifact present predict_texts_lstm raises NotImplementedError naming
-its ROADMAP item (without one it serves the keyword map, as in JAX).
+the JAX engine does. predict_texts_lstm serves the Bi-LSTM text model
+(KerasTokenizer ids padded to the batch bucket -> models.bilstm in the
+compute dtype -> result dicts), or the keyword map without one, as in
+JAX.
 
 EmotionEngine.from_models_dir (and get_engine, the process-wide
 singleton) reads a models directory of .mecp artifacts as the JAX
 engine's _load_all does, with convert/store.py in place of flax: the
 speech DNN and its .npz scaler, bert_model/ (bert_model.mecp,
-config.json, vocab.txt), the image model (ResNet50 or MobileNetV2, its
-meta's img_size and int8_scales), the fusion net, and in rf mode
-fusion_rf.mecp. Static int8 scales calibrated at load are written back
+config.json, vocab.txt), the Bi-LSTM (text_model.mecp with its
+text_model_tokenizer.json or .pkl), the image model (ResNet50 or
+MobileNetV2, its meta's img_size and int8_scales), the fusion net, and
+in rf mode fusion_rf.mecp. Static int8 scales calibrated at load are written back
 into the artifact's meta under the JAX engine's keys, so either engine
 built next skips the calibration. Deviations from the JAX loader:
   * a missing artifact serves its fallback, as in JAX;
@@ -84,6 +86,7 @@ from mec_tpu_torch.convert.from_jax import (bert_state_from_jax,
                                             forest_from_jax,
                                             fusion_state_from_jax,
                                             image_state_from_jax,
+                                            lstm_state_from_jax,
                                             speech_state_from_jax,
                                             speech_widths)
 from mec_tpu_torch.convert.hf_config import (model_kwargs_from_config,
@@ -91,6 +94,7 @@ from mec_tpu_torch.convert.hf_config import (model_kwargs_from_config,
 from mec_tpu_torch.image.preprocess import (IMAGENET_MEAN, IMAGENET_STD,
                                             load_image_uint8)
 from mec_tpu_torch.models.bert import BertForSequenceClassification
+from mec_tpu_torch.models.bilstm import BiLSTMTextModel
 from mec_tpu_torch.models.forest import forest_apply
 from mec_tpu_torch.models.fusion import MultiModalFusionModel
 from mec_tpu_torch.models.mobilenet import MobileNetV2EmotionModel
@@ -108,6 +112,7 @@ from mec_tpu_torch.ops.quant import (calibrate_static_scales,
 from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
 from mec_tpu_torch.serving import wire
 from mec_tpu_torch.text.cleaning import clean_text
+from mec_tpu_torch.text.keras_tokenizer import KerasTokenizer
 from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
 from mec_tpu_torch.utils.profiling import timer as stage_timer
 
@@ -245,6 +250,8 @@ class EmotionEngine:
                  fusion_config: Optional[Dict] = None,
                  forest_arrays: Optional[Dict] = None,
                  forest_meta: Optional[Dict] = None,
+                 lstm_variables: Optional[Dict] = None,
+                 lstm_tokenizer: Optional[KerasTokenizer] = None,
                  artifact_paths: Optional[Dict[str, str]] = None,
                  compute_dtype: Optional[str] = None, device):
         """Parameters are the JAX package's Flax trees of numpy arrays;
@@ -265,10 +272,12 @@ class EmotionEngine:
         fusion_config (its dims). forest_arrays and forest_meta (the
         random-forest fusion, mec_tpu/models/forest.py layout; served in
         the tri-modal step when Config.FUSION_MODE is 'rf').
+        lstm_variables ({'params'} BiLSTMTextModel, its widths read from
+        the tree) and lstm_tokenizer (its KerasTokenizer; both or
+        neither).
         artifact_paths: the .mecp files the trees were read from
         ('image', 'bert': new static scales are written back into their
-        meta) and 'lstm', a Bi-LSTM artifact found beside them (not
-        served; from_models_dir fills it). compute_dtype: 'bfloat16'
+        meta). compute_dtype: 'bfloat16'
         (serving mode: compressed wires, the hand-written kernels,
         folded BN, int8) or 'float32' (parity mode: the reference's fp32 graph,
         whose speech leg is the rFFT frontend of
@@ -308,7 +317,6 @@ class EmotionEngine:
         paths = dict(artifact_paths or {})
         self._image_native_path = paths.get('image')
         self._bert_native_path = paths.get('bert')
-        self._lstm_path = paths.get('lstm')
         self._decode_pool = None
         self._decode_pool_lock = threading.Lock()
         if speech_variables is not None:
@@ -342,6 +350,22 @@ class EmotionEngine:
             model.load_state_dict(fusion_state_from_jax(fusion_variables))
             self.fusion = {'model': model.to(
                 self.device).eval().requires_grad_(False)}
+        if lstm_variables is not None:
+            p = lstm_variables['params']
+            lstm = BiLSTMTextModel(
+                vocab_size=np.shape(p['embedding']['embedding'])[0],
+                embed_dim=np.shape(p['embedding']['embedding'])[1],
+                lstm_units=tuple(np.shape(p[f'bilstm_{i}']['forward']
+                                          ['recurrent_kernel'])[0]
+                                 for i in (1, 2)),
+                dense_units=tuple(np.shape(p[f'dense_{i}']['kernel'])[1]
+                                  for i in (1, 2)),
+                num_classes=np.shape(p['output']['kernel'])[1],
+                dtype=self.compute_dtype)
+            lstm.load_state_dict(lstm_state_from_jax(lstm_variables))
+            self.lstm = {'model': lstm.to(self.device).eval()
+                         .requires_grad_(False)}
+            self.lstm_tokenizer = lstm_tokenizer
         if forest_arrays is not None:
             meta = dict(forest_meta or {})
             classes = self._validate_forest(meta)
@@ -406,12 +430,13 @@ class EmotionEngine:
                  for f in ('pytorch_model.bin', 'model.safetensors')):
             _not_ported(f'21 (the checkpoint converters: {bert_dir} has no '
                         f'bert_model.mecp)')
-        lstm = path(Config.TEXT_MODEL_PATH)
+        # the Bi-LSTM serves with its tokenizer only (JAX engine.py:346-364)
         tok = path(os.path.splitext(Config.TEXT_MODEL_PATH)[0] + '_tokenizer')
-        found = [p for p in (store.native_path(lstm), lstm)
-                 if os.path.exists(p)]
-        if found and any(os.path.exists(tok + e) for e in ('.json', '.pkl')):
-            paths['lstm'] = found[0]
+        toks = [tok + e for e in ('.json', '.pkl') if os.path.exists(tok + e)]
+        lstm = _read_native(path(Config.TEXT_MODEL_PATH)) if toks else None
+        if lstm is not None:
+            kw.update(lstm_variables=lstm['variables'],
+                      lstm_tokenizer=KerasTokenizer.load(toks[0]))
         image_ref = path(Config.IMAGE_MODEL_PATH.replace('.h5', '.pt'))
         image = _read_native(image_ref)
         if image is not None:
@@ -717,14 +742,24 @@ class EmotionEngine:
             out.append(r)
         return out
 
+    @torch.inference_mode()
+    def _lstm_forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """Device step: (bucket, MAX_TEXT_LENGTH) ids -> (bucket, 7)
+        probabilities (JAX lstm_fwd, engine.py:841-843)."""
+        return self.lstm['model'](ids)[0]
+
     def predict_texts_lstm(self, texts: Sequence[str]) -> List[Dict]:
-        """The Bi-LSTM variant (JAX engine.py:1117-1128): without its
-        artifact the keyword map, as in JAX; with one found beside the
-        others it raises, since the port serves no Bi-LSTM."""
-        if self._lstm_path is not None:
-            _not_ported(f'10 (the Bi-LSTM text variant; artifact '
-                        f'{self._lstm_path})')
-        return [self.text_keyword_heuristic(t) for t in texts]
+        """The fast Bi-LSTM variant (JAX engine.py:1117-1128; reference
+        text_lstm_inference.py); the keyword map without its artifact."""
+        if self.lstm is None or self.lstm_tokenizer is None:
+            return [self.text_keyword_heuristic(t) for t in texts]
+        cleaned = [t.lower().strip() for t in texts]
+        ids = self.lstm_tokenizer.encode_batch(cleaned,
+                                               Config.MAX_TEXT_LENGTH)
+        b = self._bucket(ids.shape[0])
+        probs = self._lstm_forward(*self._to_device(
+            (_pad_rows(ids, b),)))[:len(texts)].cpu().numpy()
+        return [result_dict(p) for p in probs]
 
     # ------------------------------------------------------------------
     # image
@@ -1175,6 +1210,9 @@ class EmotionEngine:
                 self._run_speech(waves)
             if self.image is not None:
                 self._run_image(imgs)
+            if self.lstm is not None:
+                self._lstm_forward(*self._to_device(
+                    (np.zeros((b, Config.MAX_TEXT_LENGTH), np.int32),)))
             if self.bert is None:
                 continue
             w_wire = self._to_device(self._wire_waves(waves, b))

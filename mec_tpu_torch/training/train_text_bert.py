@@ -1,0 +1,282 @@
+"""BERT fine-tuning trainer: the port of mec_tpu/training/train_text_bert.py.
+
+Parity with reference model_training/train_text_model.py: AdamW 2e-5
+weight decay 0.01 with a 10% linear warmup then linear decay to 0 over
+the optimizer updates, grad clip 1.0, batch 16, 5 epochs, 85/15
+stratified split, the best-val-accuracy weights saved in servable form
+(bert_model.mecp with meta val_acc, config.json, vocab.txt; the JAX
+trainer's files).
+
+The corpus is sliced to the smallest Config.SEQ_BUCKETS length that
+covers its longest text, but never below 32 (the JAX trainer's floor):
+exact either way, since padded keys get attention weight 0 and pooling
+reads [CLS]. --grad-accum K averages K micro-batch gradients into one
+update (optax.MultiSteps' semantics), --remat recomputes each encoder
+layer in the backward pass, --bf16 runs the fp32 model under
+torch.autocast(bfloat16) (the parameters stay fp32). --pretrained-dir:
+a bert_model.mecp there initialises the encoder (all but the
+classifier); an HF checkpoint without one raises NotImplementedError
+naming ROADMAP item 21 (the converters); a directory holding only
+vocab.txt gives the vocab and a random init, as in JAX. --mesh-*,
+--seq-parallel and --experts raise NotImplementedError naming item 12.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mec_tpu_torch.config import Config
+from mec_tpu_torch.convert import store
+from mec_tpu_torch.convert.from_jax import state_from_jax
+from mec_tpu_torch.convert.to_jax import to_jax
+from mec_tpu_torch.models.bert import BertForSequenceClassification
+from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
+from mec_tpu_torch.training import common, data, metrics
+
+# the Flax model's defaults, and the config.json keys the JAX trainer
+# writes for them
+WIDTHS = {'vocab_size': ('vocab_size', 30522),
+          'hidden_size': ('hidden_size', 768),
+          'num_layers': ('num_hidden_layers', 12),
+          'num_heads': ('num_attention_heads', 12),
+          'intermediate_size': ('intermediate_size', 3072),
+          'max_position': ('max_position_embeddings', 512),
+          'type_vocab_size': ('type_vocab_size', 2),
+          'num_classes': ('num_labels', 7)}
+
+
+def make_steps(model: BertForSequenceClassification, bf16: bool = False):
+    dev_type = next(model.parameters()).device.type
+
+    def forward(batch):
+        with torch.autocast(dev_type, torch.bfloat16, enabled=bf16):
+            logits, _cls = model(batch['ids'], batch['mask'])
+        return logits
+
+    def train_step(state: common.TrainState, batch):
+        logits = forward(batch)
+        onehot = F.one_hot(batch['label'].long(), logits.shape[-1])
+        loss = common.softmax_cross_entropy(logits, onehot)
+        loss.backward()
+        state.apply_gradients()
+        return loss
+
+    def eval_step(state: common.TrainState, batch):
+        return forward(batch)
+
+    return train_step, eval_step
+
+
+def tokenize_corpus(tokenizer: WordPieceTokenizer, texts,
+                    max_length: int = 128):
+    ids, mask = tokenizer.encode_batch(list(texts), max_length=max_length)
+    return np.asarray(ids, np.int32), np.asarray(mask, np.int32)
+
+
+def init_from_pretrained(model: BertForSequenceClassification,
+                         bert_dir: str, log=print) -> None:
+    """Load the encoder (every top-level node but the classifier) from
+    bert_dir/bert_model.mecp when there is one."""
+    if not bert_dir or not os.path.isdir(bert_dir):
+        return
+    nat = os.path.join(bert_dir, 'bert_model.mecp')
+    if not os.path.exists(nat):
+        if any(os.path.exists(os.path.join(bert_dir, f)) for f in
+               ('pytorch_model.bin', 'model.safetensors', 'tf_model.h5')):
+            raise NotImplementedError(
+                f'not ported to mec_tpu_torch yet: ROADMAP.md queue A item '
+                f'21 (the checkpoint converters: {bert_dir} has no '
+                f'bert_model.mecp)')
+        log(f'Pretrained init unavailable (no bert_model.mecp in '
+            f'{bert_dir}); using random init')
+        return
+    pre = store.load_params(nat)['variables']['params']
+    variables = to_jax(model)
+    for k in variables['params']:
+        if k in pre and k != 'classifier':
+            variables['params'][k] = pre[k]
+    model.load_state_dict(state_from_jax(variables))
+    log(f'Initialized encoder from {nat}')
+
+
+def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
+          learning_rate: float = 2e-5, max_length: int = 128,
+          models_dir: Optional[str] = None, pretrained_dir: str = '',
+          mesh_data: int = 0, mesh_model: int = 0, seed: int = 42,
+          model_kwargs: Optional[dict] = None,
+          tokenizer: Optional[WordPieceTokenizer] = None,
+          texts=None, labels=None, verbose: bool = True,
+          seq_bucket: bool = True, mesh_pipe: int = 0,
+          microbatches: int = 2, seq_parallel: bool = False,
+          experts: int = 0, grad_accum: int = 1, remat: bool = False,
+          bf16: bool = False, device='cuda'):
+    """Returns (best variables as a Flax tree, history)."""
+    common.no_mesh(mesh_data=mesh_data, mesh_model=mesh_model,
+                   mesh_pipe=mesh_pipe)
+    if seq_parallel or experts:
+        raise NotImplementedError(
+            f'--seq-parallel / --experts: not ported to mec_tpu_torch yet: '
+            f'ROADMAP.md queue A item 12 (parallel, MoE)')
+    dev = common.resolve_device(device)
+    log = print if verbose else (lambda *_a, **_k: None)
+    if texts is None:
+        texts, labels = data.load_text_dataset(csv_path, fold_labels=False,
+                                               verbose=verbose)
+    if len(texts) == 0:
+        raise SystemExit('No training data found')
+
+    if tokenizer is None:
+        vocab_src = pretrained_dir or Config.BERT_MODEL_PATH
+        tokenizer = WordPieceTokenizer.from_pretrained_dir(vocab_src)
+        if tokenizer is None:
+            raise SystemExit(f'No vocab.txt under {vocab_src}; pass '
+                             '--pretrained-dir with a BERT vocab')
+
+    tr, va = metrics.train_test_split_stratified(len(texts), labels,
+                                                 0.15, seed=42)
+    ids, mask = tokenize_corpus(tokenizer, texts, max_length)
+    if seq_bucket:
+        # the smallest bucket covering the longest text, floor 32: the
+        # dropped columns are padding for every row (attention weight 0,
+        # [CLS] pooling), so loss and gradients are unchanged
+        longest = int(mask.sum(axis=1).max()) if mask.size else 1
+        for s in sorted(set(Config.SEQ_BUCKETS)):
+            if longest <= s < max_length and s >= 32:
+                ids, mask = ids[:, :s], mask[:, :s]
+                log(f'corpus max {longest} tokens; padded length {s} '
+                    f'(exact w.r.t. the attention mask)')
+                break
+    train_data = {'ids': ids[tr], 'mask': mask[tr],
+                  'label': np.asarray(labels)[tr]}
+    val_data = {'ids': ids[va], 'mask': mask[va],
+                'label': np.asarray(labels)[va]}
+    log(f'Training set: {len(tr)}  validation set: {len(va)}')
+
+    model_kwargs = dict(model_kwargs or {})
+    widths = {k: model_kwargs.get(k, d) for k, (_c, d) in WIDTHS.items()}
+    model = BertForSequenceClassification(**model_kwargs, remat=remat)
+    common.flax_init(model, seed)
+    init_from_pretrained(model, pretrained_dir, log)
+    model.to(dev)
+    if remat:
+        log('rematerialization: encoder layer activations recomputed in '
+            'the backward pass (torch.utils.checkpoint)')
+
+    grad_accum = max(1, int(grad_accum))
+    # schedules count OPTIMIZER updates (common.optimizer_total_steps)
+    total_steps = common.optimizer_total_steps(len(tr), batch_size,
+                                               epochs, grad_accum)
+    # 10% linear warmup then linear decay to 0
+    warmup_steps = max(1, total_steps // 10)
+    lr = common.join_schedules(
+        [common.linear_schedule(0.0, learning_rate, warmup_steps),
+         common.linear_schedule(learning_rate, 0.0,
+                                max(1, total_steps - warmup_steps))],
+        [warmup_steps])
+    tx = common.adamw_with_clip(lr, weight_decay=0.01, clipnorm=1.0)
+    if grad_accum > 1:
+        tx = common.multi_steps(tx, grad_accum)
+        log(f'gradient accumulation: {grad_accum} micro-batches of '
+            f'{batch_size} per optimizer update (effective batch '
+            f'{batch_size * grad_accum})')
+    state = common.TrainState(model, tx)
+    train_step, eval_step = make_steps(model, bf16)
+
+    state, best_vars, history = common.fit(
+        state, train_data, val_data, train_step, eval_step,
+        epochs=epochs, batch_size=batch_size, seed=seed,
+        monitor='val_acc', log_fn=log)
+
+    model.load_state_dict(best_vars)
+    padded, n = common.pad_batch(val_data, len(va))
+    with torch.no_grad():
+        logits = eval_step(state, common.to_device(padded, dev))
+    preds = logits.float().cpu().numpy()[:n].argmax(axis=-1)
+    log('\n' + metrics.classification_report(val_data['label'], preds,
+                                             Config.EMOTIONS))
+
+    variables = to_jax(model)
+    models_dir = models_dir or Config.BERT_MODEL_PATH
+    os.makedirs(models_dir, exist_ok=True)
+    store.save_params(os.path.join(models_dir, 'bert_model.mecp'),
+                      variables,
+                      meta={'val_acc': float(max(history['val_acc']))})
+    cfg = {c: int(widths[k]) for k, (c, _d) in WIDTHS.items()}
+    with open(os.path.join(models_dir, 'config.json'), 'w') as f:
+        json.dump(cfg, f, indent=2)
+    vocab_out = os.path.join(models_dir, 'vocab.txt')
+    if not os.path.exists(vocab_out):
+        # by id position (line number = token id), so an id gap in the
+        # source vocab cannot renumber later tokens
+        lines = [''] * (max(tokenizer.vocab.values()) + 1)
+        for tok, i in tokenizer.vocab.items():
+            lines[i] = tok
+        with open(vocab_out, 'w', encoding='utf-8') as f:
+            f.write('\n'.join(lines))
+    log(f'Saved BERT artifacts to {models_dir}')
+    return variables, history
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description='Fine-tune BERT for emotion')
+    p.add_argument('--csv', required=True)
+    p.add_argument('--epochs', type=int, default=5)
+    p.add_argument('--batch-size', type=int, default=16)
+    p.add_argument('--learning-rate', type=float, default=2e-5)
+    p.add_argument('--max-length', type=int, default=128)
+    p.add_argument('--models-dir', default=None)
+    p.add_argument('--pretrained-dir', default='',
+                   help='BERT dir for encoder init (bert_model.mecp) + '
+                        'vocab')
+    not_ported = ' (more than 1 is not ported yet: ROADMAP item 12)'
+    p.add_argument('--mesh-data', type=int, default=0,
+                   help='data-parallel axis size' + not_ported)
+    p.add_argument('--mesh-model', type=int, default=0,
+                   help='tensor-parallel axis size for the encoder'
+                        + not_ported)
+    p.add_argument('--mesh-pipe', type=int, default=0,
+                   help='pipeline-parallel stages for the encoder'
+                        + not_ported)
+    p.add_argument('--microbatches', type=int, default=2,
+                   help='pipeline microbatches per step (with --mesh-pipe)')
+    p.add_argument('--grad-accum', type=int, default=1,
+                   help='accumulate gradients over K micro-batches '
+                        'before each optimizer update (optax.MultiSteps;'
+                        ' effective batch = batch-size * K)')
+    p.add_argument('--remat', action='store_true',
+                   help='recompute encoder-layer activations in the '
+                        'backward pass (torch.utils.checkpoint)')
+    p.add_argument('--experts', type=int, default=0,
+                   help='Mixture-of-Experts FFN (not ported yet: ROADMAP '
+                        'item 12)')
+    p.add_argument('--seq-parallel', action='store_true',
+                   help='Megatron sequence parallelism (not ported yet: '
+                        'ROADMAP item 12)')
+    p.add_argument('--bf16', action='store_true',
+                   help='bfloat16 compute under torch.autocast (params '
+                        'stay float32)')
+    p.add_argument('--no-seq-bucket', action='store_true',
+                   help='pad every text to --max-length like the '
+                        'reference instead of the smallest covering '
+                        'bucket (bucketing is exact w.r.t. the '
+                        'attention mask)')
+    common.add_device_flag(p)
+    args = p.parse_args(argv)
+    train(args.csv, args.epochs, args.batch_size, args.learning_rate,
+          args.max_length, args.models_dir, args.pretrained_dir,
+          args.mesh_data, args.mesh_model,
+          seq_bucket=not args.no_seq_bucket, mesh_pipe=args.mesh_pipe,
+          microbatches=args.microbatches, seq_parallel=args.seq_parallel,
+          experts=args.experts, grad_accum=args.grad_accum,
+          remat=args.remat, bf16=args.bf16, device=args.device)
+
+
+if __name__ == '__main__':
+    main()

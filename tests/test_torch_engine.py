@@ -182,10 +182,6 @@ def test_engine_device_is_explicit():
     (lambda: EmotionEngine(bert_variables={'params': {}},
                            bert_kwargs={'num_experts': 4},
                            device='cpu'), '12'),
-    # a Bi-LSTM artifact found beside the others (without one the keyword
-    # map answers, as in JAX: tests/test_torch_mobilenet.py)
-    (lambda: EmotionEngine(artifact_paths={'lstm': 'm/text_model.mecp'},
-                           device='cpu').predict_texts_lstm(['hi']), '10'),
 ])
 def test_unported_modalities_name_their_roadmap_item(call, item):
     with pytest.raises(NotImplementedError,
