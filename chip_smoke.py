@@ -4,7 +4,7 @@ NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
-Four paths are driven: speech (waveform -> wire -> 56-dim frontend ->
+Five paths are driven: speech (waveform -> wire -> 56-dim frontend ->
 SpeechDNN; kernels K1-K4), image (uint8 RGB -> YUV 4:2:0 wire ->
 full-width 224 px ResNet50 in bf16 with BN folded and int8 static
 convs; kernels K6 stem pool, K7 layer1), the tri-modal request (the
@@ -12,9 +12,12 @@ two, BERT-base in bf16 with int8 static encoder matmuls and the
 attention fusion in one device step; with MEC_DFT_PRECISION=highest the
 speech frontend is the framed one on kernel K5), and a models directory
 served through get_engine and the inference facades (MobileNetV2 at
-224 px and the random-forest fusion; K1-K4); and training: the six
-trainers on the card, and the directory they write served (K2 in the
-speech trainer's dataset load; K1-K4, K6, K7 serving it).
+224 px and the random-forest fusion; K1-K4), and a models directory
+whose BERT is a mixture of experts served in the tri-modal step (K1-K4,
+K6, K7); and training: the six trainers on the card, and the directory
+they write served (K2 in the speech trainer's dataset load; K1-K4, K6,
+K7 serving it), the MoE BERT trainer, and data-parallel training over
+torch.distributed (two gloo ranks sharing the card, one NCCL rank).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
@@ -111,6 +114,34 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               wherever no walk compares an input within those bands of
               its threshold (near walks counted); and a second card
               engine in fp32 against the cpu within 1e-4
+  6c. moe     a full-width mixture-of-experts directory from the port's
+              writer (BERT-base widths, 12 layers, E=4, capacity 1.25,
+              config.json with num_experts; ResNet50 224 px); get_engine
+              serves it in bf16 (int8 static attention, bf16 experts)
+              on the card: warmup of buckets (1, 8, 32) and the tri-modal
+              step at B=1, 8, 32 x seq 16, 32, 128, checking K1-K4, K6,
+              K7 once per dispatch and K5 never; agreement with
+              from_models_dir(device='cpu') (the card's scales from the
+              cache) at B=8 for each sequence bucket within
+              MOE_TRI_BAND, with the tokens routed to another expert
+              than on the cpu counted (moe_routes); an fp32 card engine
+              against the cpu within 1e-4 (flips printed); CUDA-event
+              times of the MoE tri-modal and text steps at B=1, 32 and
+              seq 16, 128, profiled windows (busy share, ops) at b1 seq
+              16 and b32 seq 128; the MoE BERT-base train step (B=16, seq
+              128, fp32: ms/step, samples/s, peak memory, a profiled
+              window); the tiny BERT gate trained with --experts 2
+  6d. dp      two gloo ranks sharing the card (parallel.launch): the
+              float64 gradients of the fusion net, the speech DNN
+              (BatchNorm statistics over both ranks) and a tiny MoE BERT
+              (the global aux loss) after the all-reduce against one
+              process on the same global batch within DP_TOL; a 3-epoch
+              fusion fit, identical on both ranks and within 1e-3 of one
+              process; the all-reduce time of 64 MiB; one NCCL rank
+              initialized by initialize_multi_host from the MEC_*
+              variables (the gradient all-reduce a multi-GPU machine
+              runs); python -m mec_tpu_torch train-fusion --mesh-data 2
+              must refuse on one card, naming the visible GPU count
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
               in a marked torch.profiler range of the same 30 calls,
@@ -133,7 +164,9 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               depthwise conv at B=32, and from_models_dir's host wall
   8. report   the card's name and power limit; a JSON line of the seven
               kernels (name, route, source, replaces, launches and
-              launches_per_dispatch on the tri-modal path, max_abs_err,
+              launches on the tri-modal paths (launches_by_path: the
+              dense engines', the MoE engine's), launches_per_dispatch
+              (and moe_launches_per_dispatch), max_abs_err,
               ms by events, device_ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
               bound_peak 'memory', 'fp32', 'bf16_tc' or 'int8_tc',
               library_ms or null; K5's row is the 'highest' precision
@@ -777,6 +810,465 @@ def train_phase(card, wrappers, speech_names, requests):
     work.cleanup()
     torch.cuda.empty_cache()
     print(f'train phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
+
+
+# bf16 MoE tri-modal card engine against the same engine on the CPU
+# (given the card's static scales). Measured (NVIDIA H100 80GB HBM3,
+# 700.00 W, against its host's CPU, two runs alike): text 0.0474, image
+# 0.0067, fusion 0.0015, with 31 of 4,272 token-layer routes sent to
+# another expert than on the CPU (none in layer 0, rising to 6 of 194
+# in layer 11 at seq 128). The dense BERT's drift (TRI_BAND: LayerNorms
+# one bf16 step apart, up to 0.085 on the dense synthetic BERT-base)
+# feeds the router, and a flip moves one token's FFN output in one
+# layer; the difference measured with flips stays under the dense
+# drift's, so the band is the dense one, for that reason
+MOE_TRI_BAND = 1e-1
+# the texts that land in each sequence bucket (make_vocab's words)
+SEQ_TEXTS = {16: 'i am so happy today', 32: ' '.join(['happy', 'sad'] * 10),
+             128: ' '.join(['angry', 'calm', 'day'] * 30)}
+
+
+def moe_routes(model, ids, mask):
+    """Each MoE layer's expert choice of every real token, read off the
+    layer's own input by forward hooks (a list of (B, L) int arrays, -1
+    where the token is padding), and the model's probabilities."""
+    import torch
+    import torch.nn.functional as F
+
+    from mec_tpu_torch.models.batchnorm import wide
+    from mec_tpu_torch.models.moe import MoEFFN
+    routes, hooks = [], []
+
+    def hook(m, inputs, _out):
+        h, tok = inputs
+        logits = F.linear(wide(h), m.router.weight.float(),
+                          m.router.bias.float())
+        r = torch.argmax(torch.softmax(logits, -1), -1)
+        routes.append(torch.where(tok, r, -1).cpu().numpy())
+    for mod in model.modules():
+        if isinstance(mod, MoEFFN):
+            hooks.append(mod.register_forward_hook(hook))
+    try:
+        with torch.inference_mode():
+            logits, _cls = model(ids, mask)
+    finally:
+        for h in hooks:
+            h.remove()
+    return routes, torch.softmax(logits, -1).cpu().numpy()
+
+
+def moe_phase(card, wrappers, tri_waves, tri_pics):
+    """6c. moe: a full-width MoE BERT (BERT-base widths, E=4, capacity
+    1.25) served by get_engine in bf16 inside the tri-modal step, held
+    against the cpu engine with routing flips counted, an fp32 card
+    engine against the cpu, its device step timed and profiled; the
+    MoE trainer at full width and through the tiny BERT gate. Returns
+    the kernels' launches in the served dispatches."""
+    import torch
+
+    from mec_tpu_torch.config import Config
+    from mec_tpu_torch.convert import store
+    from mec_tpu_torch.models.bert import BertForSequenceClassification
+    from mec_tpu_torch.serving.engine import EmotionEngine, get_engine
+    from mec_tpu_torch.serving.synthetic_artifacts import \
+        write_synthetic_artifacts
+    from mec_tpu_torch.training import common, corpora, train_text_bert
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+    work = tempfile.TemporaryDirectory(prefix='chip_smoke_moe_')
+    mdir = os.path.join(work.name, 'models')
+    t0 = time.perf_counter()
+    write_synthetic_artifacts(mdir, seed=MODELS_SEED, image_size=224,
+                              bert_experts=4, moe_capacity_factor=1.25)
+    cfg = json.load(open(os.path.join(mdir, 'bert_model', 'config.json')))
+    print(f'moe: full-width directory written in '
+          f'{time.perf_counter() - t0:.2f} s (BERT-base widths, '
+          f'{cfg["num_experts"]} experts, capacity factor '
+          f'{cfg["moe_capacity_factor"]}, ResNet50 224 px)')
+    saved = Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION
+    Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = \
+        'attention', 'bfloat16', 'high'
+    try:
+        t0 = time.perf_counter()
+        eng = get_engine(mdir, reload=True)          # the default device
+        check(eng.device.type == 'cuda' and eng._all_live
+              and eng.bert['model'].num_experts == 4
+              and eng._bert_quant_mode == eng._image_quant_mode == 'static'
+              and eng._fusion_kind == 'attention',
+              'get_engine did not build the bf16 MoE tri-modal engine on '
+              'the card')
+        print(f'moe engine: get_engine on cuda (bf16, int8 static '
+              f'attention, bf16 experts, ResNet50 int8 static) in '
+              f'{time.perf_counter() - t0:.2f} s, calibrated on the card')
+        seqs = sorted(SEQ_TEXTS)
+        t0 = time.perf_counter()
+        for w in wrappers.values():
+            w.launches = 0
+        eng.warmup((1, 8, 32))
+        rows = {}
+        for B in (1, 8, 32):
+            for s in seqs:
+                rows[B, s] = eng._run_trimodal(tri_waves[:B],
+                                               [SEQ_TEXTS[s]] * B,
+                                               tri_pics[:B])
+        counts = {name: w.launches for name, w in wrappers.items()}
+        dispatches = 3 + 3 * len(seqs) + 9
+        print(f'moe engine: {dispatches} dispatches of each modality leg (3 '
+              f'single-modality warmup, {3 * len(seqs)} tri-modal warmup, 9 '
+              f'tri-modal at B=1, 8, 32 x seq {seqs}) in '
+              f'{time.perf_counter() - t0:.1f} s; launches {counts}')
+        for name, n in counts.items():
+            want = 0 if name == 'dft_spectrograms' else dispatches
+            check(n == want, f'moe engine: {name} launched {n} times in '
+                  f'{dispatches} dispatches (want {want})')
+        for (B, s), r in rows.items():
+            check(r.shape == (B, 34) and bool(np.isfinite(r).all()),
+                  f'moe rows B={B} seq {s}: {r.shape}')
+            ids, _m = eng._text_wire([SEQ_TEXTS[s]], 1)
+            check(ids.shape[1] == s, f'text of bucket {s} sliced to '
+                  f'{ids.shape[1]}')
+
+        t0 = time.perf_counter()
+        cpu = EmotionEngine.from_models_dir(mdir, device='cpu')
+        check(cpu._bert_scales_cached and cpu._image_scales_cached,
+              'the cpu MoE engine did not take the card\'s scales')
+        texts = [SEQ_TEXTS[s] for s in seqs] + TEXTS[:5]
+        k_rows = eng._run_trimodal(tri_waves[:8], texts, tri_pics[:8])
+        c_rows = cpu._run_trimodal(tri_waves[:8], texts, tri_pics[:8])
+        e_parts = {part: float(np.abs(k_rows[:, a:b] - c_rows[:, a:b]).max())
+                   for part, a, b in (('speech', 0, 7), ('text', 7, 14),
+                                      ('image', 14, 21), ('fusion', 21, 28),
+                                      ('attn', 28, 31), ('decision', 31, 34))}
+        errs, flips = {}, {}
+        for s in seqs:
+            ids, mask = eng._text_wire([SEQ_TEXTS[s]] + TEXTS[:7], 8)
+            (k_r, k_p), (c_r, c_p) = (
+                moe_routes(e.bert['model'], *e._to_device((ids, mask)))
+                for e in (eng, cpu))
+            errs[s] = float(np.abs(k_p - c_p).max())
+            real = [a >= 0 for a in k_r]
+            flips[s] = (sum(int((a[m] != b[m]).sum())
+                            for a, b, m in zip(k_r, c_r, real)),
+                        sum(int(m.sum()) for m in real),
+                        [int((a[m] != b[m]).sum())
+                         for a, b, m in zip(k_r, c_r, real)])
+        print(f'moe engine: agrees with from_models_dir(device=cpu) (scales '
+              f'from the cache; built, and 4 batches of 8 run on the cpu, in '
+              f'{time.perf_counter() - t0:.1f} s): the B=8 tri-modal rows '
+              f'(seq 128) by part ' + ', '.join(f'{k} {v:.3e}'
+                                                for k, v in e_parts.items())
+              + '; the text probabilities by sequence bucket '
+              + ', '.join(f'seq {s} {e:.3e}' for s, e in errs.items())
+              + f', all <= MOE_TRI_BAND {MOE_TRI_BAND}; tokens routed to '
+              f'another expert than on the cpu, of the token-layer routes: '
+              + ', '.join(f'seq {s} {f[0]} of {f[1]} (by layer {f[2]})'
+                          for s, f in flips.items()))
+        check(max(e_parts.values()) <= MOE_TRI_BAND, f'moe bf16 tri-modal '
+              f'rows differ from cpu: {e_parts} > {MOE_TRI_BAND}')
+        for s, e in errs.items():
+            check(e <= MOE_TRI_BAND, f'moe bf16 seq {s}: text probabilities '
+                  f'differ from cpu by {e} > {MOE_TRI_BAND}')
+        del cpu
+
+        Config.COMPUTE_DTYPE = 'float32'
+        t0 = time.perf_counter()
+        e32 = EmotionEngine.from_models_dir(mdir, device='cuda')
+        c32 = EmotionEngine.from_models_dir(mdir, device='cpu')
+        texts = [SEQ_TEXTS[s] for s in seqs] + TEXTS[:1]
+        k32 = e32._run_trimodal(tri_waves[:4], texts, tri_pics[:4])
+        c32r = c32._run_trimodal(tri_waves[:4], texts, tri_pics[:4])
+        e_32 = float(np.abs(k32 - c32r).max())
+        ids, mask = e32._text_wire(texts, 4)
+        f32 = [0, 0]
+        for a, b in zip(*(moe_routes(e.bert['model'],
+                                     *e._to_device((ids, mask)))[0]
+                          for e in (e32, c32))):
+            real = a >= 0
+            f32[0] += int((a[real] != b[real]).sum())
+            f32[1] += int(real.sum())
+        print(f'moe engine (fp32 parity): the card agrees with device=cpu '
+              f'(all 34 packed values max|err| {e_32:.3e} <= 1e-4 at B=4, '
+              f'one text of each bucket; routing flips {f32[0]} of '
+              f'{f32[1]} token-layer routes; {time.perf_counter() - t0:.1f} '
+              f's with both engines\' builds)')
+        check(e_32 <= 1e-4, f'moe fp32: packed values differ from cpu by '
+              f'{e_32} > 1e-4')
+        del e32, c32
+    finally:
+        Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = saved
+
+    t0 = time.perf_counter()
+    for B in (1, 32):
+        for s in (16, 128):
+            ids, mask = eng._to_device(eng._text_wire([SEQ_TEXTS[s]] * B, B))
+            args = (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids,
+                    mask, eng._to_device(eng._wire_image(tri_pics[:B], B)))
+            step = cuda_ms(lambda: eng._trimodal_forward(*args), reps=20)
+            text = cuda_ms(lambda: eng._text_forward(ids, mask), reps=10)
+            extra = ''
+            if (B, s) in ((1, 16), (32, 128)):
+                wall, busy, share, ops, top = profile_step(
+                    lambda: eng._trimodal_forward(*args), steps=5)
+                extra = (f'; profiled wall {wall:.3f} ms, device busy '
+                         f'{busy:.3f} ms, busy share {share:.3f}, {ops:.0f} '
+                         f'device ops/step, most: {top[0][0]} '
+                         f'{top[0][1]:.3f} ms' if top else
+                         '; profiled window lost its launches')
+            print(f'time moe trimodal device step B={B:2d} seq {s:3d}: '
+                  f'{step:.4f} ms (CUDA events; its MoE text step alone '
+                  f'{text:.4f} ms){extra}; {card}')
+    print(f'moe timings: {time.perf_counter() - t0:.1f} s')
+    del eng
+    torch.cuda.empty_cache()
+
+    # the MoE trainer: full width, a few optimizer steps
+    idle = torch.cuda.memory_allocated()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    batch = {'ids': torch.randint(5, 30522, (16, 128), device=dev,
+                                  generator=gen),
+             'mask': torch.ones(16, 128, dtype=torch.int32, device=dev),
+             'label': torch.randint(0, 7, (16,), device=dev, generator=gen)}
+    st = common.TrainState(common.flax_init(BertForSequenceClassification(
+        num_experts=4), 0).to(dev), common.adamw_with_clip(
+            common.cosine_decay_schedule(2e-5, 100)))
+    step_times('moe bert-base 12x768 E=4 B=16 seq 128 fp32', card, st,
+               train_text_bert.make_steps(st.model)[0], batch, 16, idle,
+               profiled=True)
+    del st, batch
+    torch.cuda.empty_cache()
+
+    # the tiny BERT gate with --experts 2, then its directory served
+    texts, labels = corpora.make_text_corpus(per_class=12)
+    tok = corpora.make_bert_tokenizer(texts)
+    tiny = dict(vocab_size=len(tok.vocab), hidden_size=64, num_layers=2,
+                num_heads=2, intermediate_size=128)
+    gate_dir = os.path.join(work.name, 'gate', 'bert_model')
+    t0 = time.perf_counter()
+    _v, hist = train_text_bert.train(
+        csv_path=None, texts=texts, labels=labels, tokenizer=tok, epochs=8,
+        batch_size=16, max_length=16, learning_rate=5e-4, model_kwargs=tiny,
+        models_dir=gate_dir, verbose=False, device='cuda', experts=2)
+    acc = max(hist['val_acc'])
+    cfg = json.load(open(os.path.join(gate_dir, 'config.json')))
+    print(f'train gate bert --experts 2: best val_acc {acc:.4f} > '
+          f'{GATES["bert"]} ({time.perf_counter() - t0:.1f} s on the card); '
+          f'config.json num_experts {cfg.get("num_experts")}, '
+          f'moe_capacity_factor {cfg.get("moe_capacity_factor")}')
+    check(acc > GATES['bert'], f'train gate bert --experts 2: val_acc {acc} '
+          f'<= {GATES["bert"]}')
+    check(cfg.get('num_experts') == 2 and 'moe' in store.load_params(
+        os.path.join(gate_dir, 'bert_model.mecp'))['variables']['params']
+        ['layer_0'], 'the --experts 2 directory is not an MoE one')
+    work.cleanup()
+    print(f'moe phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
+    return counts, dispatches
+
+
+# phase 6d: the float64 gradients after the all-reduce against one
+# process on the same global batch (a mean of two half-batch means
+# against one mean: rounding only), on the card
+DP_TOL = 1e-9
+
+
+def dp_grads(device, mesh):
+    """One float64 training step of the fusion net, the speech DNN
+    (BatchNorm statistics) and a tiny MoE BERT (the aux loss) on this
+    rank's rows of a seeded global batch of 16 (all rows without a
+    mesh): {case: (loss, the gradients the optimizer was handed)}."""
+    import torch
+
+    from mec_tpu_torch.models.bert import BertForSequenceClassification
+    from mec_tpu_torch.models.fusion import MultiModalFusionModel
+    from mec_tpu_torch.models.speech_dnn import SpeechDNN
+    from mec_tpu_torch.parallel import mesh as pmesh
+    from mec_tpu_torch.training import (common, train_fusion, train_speech,
+                                        train_text_bert)
+
+    class Recording(common.Tx):
+        def step(self, grads, state, params):
+            self.grads = [g.double().cpu().numpy() for g in grads]
+            super().step(grads, state, params)
+
+    rng = np.random.RandomState(3)
+    B = 16
+    probs = rng.dirichlet(np.ones(7), (3, B))
+    mask = np.cumprod(np.arange(12)[None] < rng.randint(3, 13, (B, 1)), 1)
+    cases = {
+        'fusion': (MultiModalFusionModel(speech_dim=8, text_dim=12,
+                                         image_dim=10, hidden_dim=16,
+                                         dtype=torch.float64),
+                   train_fusion.make_steps,
+                   {'s_feat': rng.randn(B, 8), 't_feat': rng.randn(B, 12),
+                    'i_feat': rng.randn(B, 10), 's_pred': probs[0],
+                    't_pred': probs[1], 'i_pred': probs[2],
+                    'label': rng.randint(0, 7, B)}),
+        'speech': (SpeechDNN(), train_speech.make_steps,
+                   {'x': rng.randn(B, 56),
+                    'label': np.eye(7)[rng.randint(0, 7, B)]}),
+        'moe_bert': (BertForSequenceClassification(
+            vocab_size=50, hidden_size=16, num_layers=2, num_heads=2,
+            intermediate_size=32, max_position=32, num_experts=2,
+            moe_capacity_factor=1.0, dtype=torch.float64),
+            train_text_bert.make_steps,
+            {'ids': rng.randint(5, 50, (B, 12)) * mask,
+             'mask': mask.astype(np.int32), 'label': rng.randint(0, 7, B)})}
+    out = {}
+    for name, (model, make, batch) in cases.items():
+        model = common.flax_init(model, 0).double().to(device)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        if mesh is not None:
+            batch = mesh.shard_rows(batch)
+        state = common.TrainState(model, Recording({'all': common.Adam(1e-3)}))
+        model.train()
+        with pmesh.data_parallel(mesh):
+            loss = make(model)[0](state, common.to_device(batch, device))
+        out[name] = (float(loss.detach()), state.tx.grads)
+    return out
+
+
+def dp_fit(device, mesh):
+    """3 epochs of the fusion net (fp32, 96 training rows in batches of
+    16: no ragged tail) through common.fit: (history, parameters)."""
+    import torch
+
+    from mec_tpu_torch.models.fusion import MultiModalFusionModel
+    from mec_tpu_torch.training import common, train_fusion
+    rng = np.random.RandomState(5)
+    n = 128
+    data = {'s_feat': rng.randn(n, 8), 't_feat': rng.randn(n, 12),
+            'i_feat': rng.randn(n, 10),
+            's_pred': rng.dirichlet(np.ones(7), n),
+            't_pred': rng.dirichlet(np.ones(7), n),
+            'i_pred': rng.dirichlet(np.ones(7), n)}
+    data = {k: v.astype(np.float32) for k, v in data.items()}
+    data['label'] = rng.randint(0, 7, n)
+    model = common.flax_init(MultiModalFusionModel(
+        speech_dim=8, text_dim=12, image_dim=10, hidden_dim=16), 0)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    state = common.TrainState(model.to(device), common.adam_with_clip(1e-3))
+    steps = train_fusion.make_steps(model)
+    _s, _best, hist = common.fit(
+        state, {k: v[:96] for k, v in data.items()},
+        {k: v[96:] for k, v in data.items()}, *steps, epochs=3,
+        batch_size=16, seed=4, log_fn=lambda *_: None, mesh=mesh)
+    return hist, [p.detach().cpu().numpy() for p in state.params]
+
+
+def allreduce_ms(mesh, device, mib=64, reps=5):
+    """Host-clock milliseconds of one all-reduce (mean) of an fp32 buffer
+    of `mib` MiB on `device`, median of `reps` after 2 warm-up calls."""
+    import torch
+    buf = torch.ones(mib * 2 ** 18, device=device)
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_reduce_([buf], mean=True)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_rank():
+    """One rank of phase 6d (two gloo ranks on one card)."""
+    import torch
+
+    from mec_tpu_torch.training import common
+    mesh = common.data_mesh(2)
+    dev = torch.device('cuda', torch.cuda.current_device())
+    grads = dp_grads(dev, mesh)
+    hist, params = dp_fit(dev, mesh)
+    return {'grads': grads, 'hist': hist, 'params': params,
+            'allreduce_64mib_ms': allreduce_ms(mesh, dev)}
+
+
+def dp_phase(card):
+    """6d. data-parallel: two gloo ranks on the card against one process;
+    one NCCL rank initialized from the MEC_* variables; the CLI refusing
+    --mesh-data 2 on one card."""
+    import torch
+    import torch.distributed as dist
+
+    from mec_tpu_torch.parallel import distributed, launch
+    from mec_tpu_torch.parallel import mesh as pmesh
+    t_phase = time.perf_counter()
+    ranks = launch.launch(dp_rank, 2, devices=['cuda:0', 'cuda:0'],
+                          backend='gloo', timeout=600)
+    ref = dp_grads(torch.device('cuda'), None)
+    errs = {}
+    for name, (loss, grads) in ref.items():
+        scale = max(float(np.abs(g).max()) for g in grads)
+        errs[name] = max(float(np.abs(a - b).max()) for r in ranks
+                         for a, b in zip(r['grads'][name][1], grads))
+        mean_loss = (ranks[0]['grads'][name][0]
+                     + ranks[1]['grads'][name][0]) / 2
+        check(errs[name] <= DP_TOL and abs(mean_loss - loss) <= DP_TOL,
+              f'dp {name}: averaged gradients differ from one process by '
+              f'{errs[name]} (loss {mean_loss} vs {loss}) > {DP_TOL}')
+        errs[name] = (errs[name], scale)
+    check(ranks[0]['hist'] == ranks[1]['hist']
+          and all(np.array_equal(a, b) for a, b in
+                  zip(ranks[0]['params'], ranks[1]['params'])),
+          'dp: the two ranks\' histories or parameters differ')
+    one_hist, _p = dp_fit(torch.device('cuda'), None)
+    e_loss = max(abs(a - b) / abs(b) for a, b in
+                 zip(ranks[0]['hist']['loss'], one_hist['loss']))
+    check(e_loss <= 1e-3 and ranks[0]['hist']['val_acc'] ==
+          one_hist['val_acc'], f'dp fit: loss {ranks[0]["hist"]["loss"]} vs '
+          f'one process {one_hist["loss"]}')
+    print('dp gloo (2 ranks sharing cuda:0, gloo all-reducing CUDA tensors, '
+          'BatchNorm and the MoE aux through the autograd all-reduce): '
+          'float64 averaged gradients against one process on the same '
+          'global batch of 16, max|err| (largest gradient) '
+          + ', '.join(f'{k} {e:.2e} ({s:.2e})' for k, (e, s) in errs.items())
+          + f' <= {DP_TOL}; 3-epoch fp32 fusion fit: both ranks\' histories '
+          f'and parameters identical, loss within {e_loss:.2e} relative of '
+          f'one process, val_acc equal; all-reduce of 64 MiB fp32 '
+          f'{ranks[0]["allreduce_64mib_ms"]:.2f} ms (host clock, gloo); '
+          f'{card}')
+
+    # one NCCL rank from the MEC_* variables: a multi-GPU machine's path
+    env = {'MEC_COORDINATOR_ADDRESS': f'localhost:{launch.free_port()}',
+           'MEC_NUM_PROCESSES': '1', 'MEC_PROCESS_ID': '0'}
+    os.environ.update(env)
+    try:
+        check(distributed.initialize_multi_host()
+              and dist.get_backend() == 'nccl', 'initialize_multi_host did '
+              'not start an NCCL group from the MEC_* variables')
+        mesh = pmesh.make_mesh(1)
+        got = dp_grads(torch.device('cuda'), mesh)
+        e1 = max(float(np.abs(a - b).max()) for name in ref
+                 for a, b in zip(got[name][1], ref[name][1]))
+        check(e1 <= DP_TOL, f'dp nccl world 1: gradients differ by {e1}')
+        nccl_ms = allreduce_ms(mesh, torch.device('cuda'))
+        print(f'dp nccl (world size 1 from MEC_* variables): the gradient '
+              f'all-reduce runs, gradients within {e1:.2e} of no group; '
+              f'all-reduce of 64 MiB fp32 {nccl_ms:.3f} ms (host clock); '
+              f'{card}')
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            del os.environ[k]
+
+    cli = subprocess.run(
+        [sys.executable, '-m', 'mec_tpu_torch', 'train-fusion',
+         '--mesh-data', '2', '--epochs', '1'], cwd=HERE, capture_output=True,
+        text=True, timeout=300)
+    n_gpu = torch.cuda.device_count()
+    check(cli.returncode != 0 and 'needs 2 GPUs' in cli.stderr
+          and f'{n_gpu} is visible' in cli.stderr,
+          f'train-fusion --mesh-data 2 on {n_gpu} GPU did not refuse: '
+          f'{cli.returncode} {cli.stderr[-1000:]}')
+    print(f'dp cli: python -m mec_tpu_torch train-fusion --mesh-data 2 '
+          f'refused on {n_gpu} visible GPU: '
+          f'{cli.stderr.strip().splitlines()[-1][:200]}')
+    print(f'dp phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
 
 
 def main():
@@ -1573,6 +2065,13 @@ def main():
     finally:
         Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = saved
 
+    # ------------------------------------------------------------ 6c moe
+    moe_launches, moe_dispatches = moe_phase(card, wrappers, tri_waves,
+                                             tri_pics)
+
+    # -------------------------------------------------- 6d data-parallel
+    dp_phase(card)
+
     # ----------------------------------------------------------- 7 times
     # the models phase first: the MobileNetV2 image step, the rf
     # tri-modal step, the forest walk and MobileNetV2's depthwise conv
@@ -1826,10 +2325,12 @@ def main():
                           'mec_tpu/ops/pallas_resnet.py:189'),
                'dft_spectrograms': ('mec_tpu_torch/csrc/dft_power.cu',
                                     'mec_tpu/ops/pallas_kernels.py:99')}
-    # launches: the tri-modal path's runs (both engines), this slice's
-    # main path; launches_per_dispatch: in the 'highest' engine, where all
-    # seven are on the path. K5's times are the 'highest' precision's; its
-    # 'bf16' ones follow under bf16_* keys. bound_by says which side
+    # launches: the tri-modal paths' runs (both dense engines, phase 6,
+    # and the MoE engine, phase 6c: launches_by_path splits them);
+    # launches_per_dispatch: in the 'highest' engine, where all seven are
+    # on the path; moe_launches_per_dispatch on the MoE tri-modal path.
+    # K5's times are the 'highest' precision's; its 'bf16' ones follow
+    # under bf16_* keys. bound_by says which side
     # binds, bound_peak which data-sheet peak, share is bound_ms over
     # device_ms. The bf16 library call rounds its result to bf16: a
     # floor, not the same function
@@ -1837,8 +2338,13 @@ def main():
         ms, plain_ms, lib_ms, dev_ms = times[name]
         b_ms, b_by, b_peak = bounds[name]
         e = {'name': name, 'route': 'cuda', 'source': sources[name][0],
-             'replaces': sources[name][1], 'launches': tri_launches[name],
+             'replaces': sources[name][1],
+             'launches': tri_launches[name] + moe_launches[name],
+             'launches_by_path': {'trimodal': tri_launches[name],
+                                  'moe_trimodal': moe_launches[name]},
              'launches_per_dispatch': per_dispatch[name],
+             'moe_launches_per_dispatch': moe_launches[name]
+             / moe_dispatches,
              'max_abs_err': errs[name], 'ms': ms, 'device_ms': dev_ms,
              'plain_ms': plain_ms,
              'bound_ms': b_ms, 'bound_by': b_by, 'bound_peak': b_peak,

@@ -35,7 +35,11 @@ What is ported so far:
   MobileNetV2, attention fusion, random-forest fusion) over one fit
   loop with optax's optimizers, Flax's BatchNorm update and resumable
   checkpoints, writing the JAX trainers' artifacts; `python -m
-  mec_tpu_torch train-...`.
+  mec_tpu_torch train-...`;
+* the mixture-of-experts BERT (models/moe.py), served from a models
+  directory and trained with --experts;
+* data-parallel training over torch.distributed (--mesh-data N: one
+  process a device, parallel/).
 
 All seven TPU Pallas kernels are rewritten as CUDA C++ kernels for
 sm_90a (csrc/, built at first use by ops/_build.py): K1 mfcc_mean, K2
@@ -48,16 +52,19 @@ Package layout:
               numpy filter tables, WAV decode, BN fold, int8 quantization,
               the nvcc build
   csrc/       the hand-written CUDA kernels
-  models/     SpeechDNN, the Bi-LSTM, BERT, ResNet50, MobileNetV2, the
-              fusion net, the forest walk, QuantConv and QuantDense
-              (plain nn.Modules and torch ops; built in eval mode, with
-              training forwards), Flax's BatchNorm step and remat
+  models/     SpeechDNN, the Bi-LSTM, BERT (and its MoE FFN), ResNet50,
+              MobileNetV2, the fusion net, the forest walk, QuantConv and
+              QuantDense (plain nn.Modules and torch ops; built in eval
+              mode, with training forwards), Flax's BatchNorm step and
+              remat
   image/      image decode and the ImageNet constants
   text/       text cleaning, the WordPiece and Keras tokenizers
   convert/    the .mecp reader and writer, the HF config.json widths,
               JAX (Flax numpy tree) <-> port parameters
   training/   the fit loop, optimizers, checkpoints, loaders, synthetic
               corpora and the six trainers
+  parallel/   the data axis: process-group init, DataMesh, the rank
+              launcher
   serving/    wire codecs, engine (and get_engine), micro-batcher,
               synthetic parameters and models directories
   inference/  the reference-API facades over get_engine

@@ -115,3 +115,8 @@ class Config:
     BERT_MODEL_PATH = os.environ.get('BERT_MODEL_PATH', 'models/bert_model')
     FUSION_RF_MODEL_PATH = os.environ.get('FUSION_RF_MODEL_PATH',
                                           'models/fusion_rf.pkl')
+
+    # Mesh axis sizes (parallel/mesh.local_mesh_shape); 'auto' puts every
+    # rank on the data axis. The port has the data axis only.
+    MESH_DATA = os.environ.get('MEC_MESH_DATA', 'auto')
+    MESH_MODEL = int(os.environ.get('MEC_MESH_MODEL', '1'))

@@ -82,7 +82,9 @@ def state_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
         QuantConv/QuantDense buffers, ``kernel_q`` as (out, kh*kw*in),
         input channel fastest (a dense kernel: (out, in));
       * a bare array (the fusion MHA's ``in_proj_weight``, already in
-        torch's (3e, e) layout, and ``in_proj_bias``) -> itself.
+        torch's (3e, e) layout, and ``in_proj_bias``; an MoE layer's
+        ``wi``, ``wo``, ``bi``, ``bo``, beside its ``router`` Dense) ->
+        itself.
     """
     state: Dict[str, torch.Tensor] = {}
 

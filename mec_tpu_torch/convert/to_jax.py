@@ -15,6 +15,9 @@ and float32 arrays) from a model the port trained:
   * models.bert.LayerNorm ``weight``, ``bias`` -> ``{scale, bias}``;
   * the fusion MHA's ``in_proj_weight`` and ``in_proj_bias`` -> the same
     bare arrays;
+  * models.moe.MoEFFN -> ``{router {kernel, bias}, wi, wo, bi, bo}`` (the
+    expert bank's arrays as they are: (E, H, F), (E, F, H), (E, F),
+    (E, H));
   * a bidirectional nn.LSTM (models.bilstm.BiLSTM) ->
     ``{forward, backward}`` KerasLSTMs ``{kernel, recurrent_kernel,
     bias = bias_ih + bias_hh}``;
@@ -37,6 +40,7 @@ from torch import nn
 
 from mec_tpu_torch.models.bert import LayerNorm
 from mec_tpu_torch.models.fusion import TorchMultiheadAttention
+from mec_tpu_torch.models.moe import MoEFFN
 from mec_tpu_torch.models.speech_dnn import SpeechDNN
 
 
@@ -63,6 +67,11 @@ def _walk(module: nn.Module) -> Tuple[Dict, Dict]:
     for name, m in module.named_children():
         if isinstance(m, nn.LSTM):
             params[name] = _lstm(m)
+        elif isinstance(m, MoEFFN):
+            params[name] = {'router': {'kernel': _np(m.router.weight.T),
+                                       'bias': _np(m.router.bias)},
+                            'wi': _np(m.wi), 'wo': _np(m.wo),
+                            'bi': _np(m.bi), 'bo': _np(m.bo)}
         elif isinstance(m, TorchMultiheadAttention):
             sub, _ = _walk(m)
             params[name] = dict(sub, in_proj_weight=_np(m.in_proj_weight),

@@ -21,6 +21,15 @@ remat(module, *args) is flax.linen.remat: torch.utils.checkpoint
 the backward pass, and the BatchNorms inside update their statistics on
 the first run only, as Flax returns the mutated collection once. So
 remat is bit-exact against no remat.
+
+Inside a data-parallel fit (parallel/mesh.data_parallel) the statistics
+are the global batch's: the per-rank sums of x and x^2 and the row
+count are all-reduced (autograd-aware, so the backward pass sees the
+global statistics too) before E[x] and E[x^2] are taken, as JAX's BN
+over a batch sharded on 'data' reduces under GSPMD.
+
+wide(x) is the statistics' dtype: fp32 for bf16 and fp32 activations
+(Flax's promote_types(x.dtype, float32)), float64 for float64.
 """
 
 from __future__ import annotations
@@ -29,14 +38,31 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from mec_tpu_torch.parallel import mesh as pmesh
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in at least fp32 (float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
 
 def train_batch_norm(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Normalise channel-last x (..., C) with its batch statistics and,
-    unless bn.update_stats is False, fold them into bn's running ones."""
-    xf = x.float()
+    """Normalise channel-last x (..., C) with its batch statistics (the
+    global batch's inside a data-parallel fit) and, unless
+    bn.update_stats is False, fold them into bn's running ones."""
+    xf = wide(x)
     dims = tuple(range(x.dim() - 1))
-    mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    dmesh = pmesh.active()
+    if dmesh is None:
+        mean = xf.mean(dim=dims)
+        sq = (xf * xf).mean(dim=dims)
+    else:
+        c = xf.shape[-1]
+        sums = dmesh.all_reduce_sum(torch.cat([
+            xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+            xf.new_full((1,), float(xf.numel() // c))]))
+        mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    var = torch.clamp(sq - mean * mean, min=0.0)
     if getattr(bn, 'update_stats', True):
         m = 1.0 - bn.momentum
         with torch.no_grad():

@@ -24,26 +24,38 @@ where the reference rounds:
 With quant=True (bf16 serving) the six encoder matmuls of every layer
 are models.qconv.QuantDense (int8, per-token dynamic or calibrated
 static activation scales). Module names follow the Flax tree, so
-convert/from_jax.bert_state_from_jax maps it one to one. Not ported:
-the MoE FFN and sequence parallelism (ROADMAP queue A item 12).
+convert/from_jax.bert_state_from_jax maps it one to one.
+
+With num_experts > 0 every layer's FFN is models.moe.MoEFFN (`moe` in
+place of `intermediate` and `output`; the residual and output_norm
+stay): the token mask is rebuilt from the additive bias (bias > -1), so
+padding tokens never route, and forward(..., return_aux=True) also
+returns the layers' load-balancing losses, one a layer. Under quant=True
+only q, k, v and attention_output are int8; the expert bank stays in
+the compute dtype, as in JAX (ops/quant.quantize_bert_params skips
+`moe`). Not ported: sequence parallelism and expert parallelism (ROADMAP
+queue A item 12).
 
 Training (module.training, the unquantized form): dropout_rate (HF's
 hidden_dropout_prob, 0.1) after the embeddings' LayerNorm and after the
 pooler's tanh, where the Flax model has its two dropouts, and with
 remat=True each encoder layer is recomputed in the backward pass
-(torch.utils.checkpoint, as nn.remat). For bf16 training the caller
+(torch.utils.checkpoint, as nn.remat; an MoE layer's aux loss is a
+layer output, so it is counted once). For bf16 training the caller
 runs the fp32 model under torch.autocast.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mec_tpu_torch.models.batchnorm import remat as remat_layer
+from mec_tpu_torch.models.batchnorm import wide
+from mec_tpu_torch.models.moe import MoEFFN
 from mec_tpu_torch.models.qconv import QuantDense
 
 
@@ -66,7 +78,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = wide(x)
         mu = x.mean(dim=-1, keepdim=True)
         d = x - mu
         var = (d * d).mean(dim=-1, keepdim=True)
@@ -105,13 +117,14 @@ class BertSelfAttention(nn.Module):
         q, k, v = split(self.query(h)), split(self.key(h)), split(self.value(h))
         scores = (q @ k.transpose(-1, -2)) / self.scale
         scores = scores + bias[:, None, None, :]
-        probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+        probs = torch.softmax(wide(scores), dim=-1).to(self.dtype)
         return (probs @ v).transpose(1, 2).reshape(B, L, H)
 
 
 class BertLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, inter: int, dtype,
-                 gelu_approximate: bool, quant: bool, quant_mode: str):
+                 gelu_approximate: bool, quant: bool, quant_mode: str,
+                 num_experts: int = 0, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.gelu = 'tanh' if gelu_approximate else 'none'
         self.attention_self = BertSelfAttention(hidden, heads, dtype, quant,
@@ -119,13 +132,23 @@ class BertLayer(nn.Module):
         self.attention_output = dense(hidden, hidden, dtype, quant,
                                       quant_mode)
         self.attention_norm = LayerNorm(hidden, 1e-12, dtype)
-        self.intermediate = dense(hidden, inter, dtype, quant, quant_mode)
-        self.output = dense(inter, hidden, dtype, quant, quant_mode)
+        if num_experts > 0:
+            self.moe = MoEFFN(hidden, inter, num_experts,
+                              moe_capacity_factor, dtype, gelu_approximate)
+        else:
+            self.intermediate = dense(hidden, inter, dtype, quant,
+                                      quant_mode)
+            self.output = dense(inter, hidden, dtype, quant, quant_mode)
         self.output_norm = LayerNorm(hidden, 1e-12, dtype)
 
-    def forward(self, h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, bias: torch.Tensor
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """The next hidden state; an MoE layer returns (it, aux loss)."""
         ctx = self.attention_output(self.attention_self(h, bias))
         h = self.attention_norm(h + ctx)
+        if hasattr(self, 'moe'):
+            out, aux = self.moe(h, bias > -1.0)
+            return self.output_norm(h + out), aux
         inter = F.gelu(self.intermediate(h), approximate=self.gelu)
         return self.output_norm(h + self.output(inter))
 
@@ -138,9 +161,12 @@ class BertForSequenceClassification(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  gelu_approximate: bool = False, quant: bool = False,
                  quant_mode: str = 'dynamic', dropout_rate: float = 0.1,
-                 remat: bool = False):
+                 remat: bool = False, num_experts: int = 0,
+                 moe_capacity_factor: float = 1.25):
         super().__init__()
         self.dtype, self.remat = dtype, remat
+        self.num_experts = num_experts
+        self.moe_capacity_factor = moe_capacity_factor
         self.dropout = nn.Dropout(dropout_rate)
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size,
                                             dtype=dtype)
@@ -153,7 +179,8 @@ class BertForSequenceClassification(nn.Module):
         for i in range(num_layers):
             self.add_module(f'layer_{i}', BertLayer(
                 hidden_size, num_heads, intermediate_size, dtype,
-                gelu_approximate, quant, quant_mode))
+                gelu_approximate, quant, quant_mode, num_experts,
+                moe_capacity_factor))
         self.pooler = Dense(hidden_size, hidden_size, dtype=dtype)
         self.classifier = Dense(hidden_size, num_classes, dtype=dtype)
         # the f32 minimum, cast where the mask is built: -inf in bf16
@@ -161,10 +188,15 @@ class BertForSequenceClassification(nn.Module):
             torch.finfo(torch.float32).min), persistent=False)
         self.eval()    # the Flax models' train=False default
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                return_aux: bool = False
+                ) -> Union[Tuple[torch.Tensor, torch.Tensor],
+                           Tuple[torch.Tensor, torch.Tensor,
+                                 List[torch.Tensor]]]:
         """(B, L) integer ids and mask -> (logits (B, C) f32, [CLS]
-        hidden state (B, H) f32); token types are all 0."""
+        hidden state (B, H) f32); token types are all 0. return_aux: also
+        the MoE layers' load-balancing losses (an empty list without
+        experts)."""
         ids = input_ids.long()
         L = ids.shape[1]
         pos = torch.arange(L, device=ids.device)
@@ -172,11 +204,17 @@ class BertForSequenceClassification(nn.Module):
              + self.token_type_embeddings(torch.zeros_like(ids)))
         h = self.dropout(self.embeddings_norm(h))
         bias = ((1.0 - attention_mask.float()) * self.neg).to(self.dtype)
+        aux = []
         for i in range(self.num_layers):
             layer = getattr(self, f'layer_{i}')
             h = (remat_layer(layer, h, bias) if self.remat and self.training
                  else layer(h, bias))
+            if self.num_experts > 0:
+                h, a = h
+                aux.append(a)
         cls = h[:, 0, :]
         pooled = self.dropout(torch.tanh(self.pooler(cls)))
         logits = self.classifier(pooled)
-        return logits.float(), cls.float()
+        if return_aux:
+            return wide(logits), wide(cls), aux
+        return wide(logits), wide(cls)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mec_tpu_torch.models.batchnorm import wide
 from mec_tpu_torch.models.bert import Dense, LayerNorm
 
 EPS = 1e-5
@@ -63,7 +64,7 @@ class TorchMultiheadAttention(nn.Module):
         k = k.reshape(B, Lk, h, e // h).transpose(1, 2)
         v = v.reshape(B, Lk, h, e // h).transpose(1, 2)
         scores = (q @ k.transpose(-1, -2)) / self.scale.to(q.dtype)
-        attn = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+        attn = torch.softmax(wide(scores), dim=-1).to(self.dtype)
         out = (attn.to(v.dtype) @ v).transpose(1, 2).reshape(B, Lq, e)
         return self.out_proj(out)
 
@@ -105,7 +106,7 @@ class AttentionFusion(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         projected = [getattr(self, f'proj_{i}')(f) for i, f in enumerate(feats)]
         a = self.attn_1(torch.tanh(self.attn_0(torch.cat(projected, dim=-1))))
-        weights = torch.softmax(a.float(), dim=-1)              # (B, M)
+        weights = torch.softmax(wide(a), dim=-1)              # (B, M)
         stacked = torch.stack(projected, dim=1)                 # (B, M, H)
         fused = (stacked * weights[..., None].to(self.dtype)).sum(dim=1)
         return fused, weights
@@ -150,7 +151,7 @@ class MultiModalFusionModel(nn.Module):
         preds = (speech_pred, text_pred, image_pred)
         all_preds = torch.cat(preds, dim=-1).to(self.dtype)
         d = self.decision_1(F.relu(self.decision_0(all_preds)))
-        decision_weights = torch.softmax(d.float(), dim=-1)
+        decision_weights = torch.softmax(wide(d), dim=-1)
         stacked = torch.stack(preds, dim=1).to(self.dtype)
         weighted = (stacked * decision_weights[..., None].to(self.dtype)
                     ).sum(dim=1)
@@ -159,4 +160,4 @@ class MultiModalFusionModel(nn.Module):
         x = self.dropout_0(F.relu(self.classifier_norm(self.classifier_0(x))))
         x = self.dropout_1(F.relu(self.classifier_1(x)))
         logits = self.classifier_2(x)
-        return logits.float(), attention_weights, decision_weights
+        return wide(logits), attention_weights, decision_weights

@@ -22,7 +22,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from mec_tpu_torch.models.batchnorm import BatchNorm1d
+from mec_tpu_torch.models.batchnorm import BatchNorm1d, wide
 
 
 class SpeechDNN(nn.Module):
@@ -44,4 +44,4 @@ class SpeechDNN(nn.Module):
         for dense, bn, drop in zip(self.dense, self.bn, self.dropout):
             x = drop(torch.relu(bn(dense(x))))
         logits = self.out(x)
-        return torch.softmax(logits.float(), dim=-1), x.float()
+        return torch.softmax(wide(logits), dim=-1), wide(x)

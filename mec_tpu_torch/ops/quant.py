@@ -26,7 +26,10 @@ The stem conv and the head stay in the compute dtype (three input
 channels; negligible FLOPs). In BERT the six encoder matmuls of every
 layer are quantized; embeddings, LayerNorms, the attention score and
 context products, the pooler and the classifier stay in the compute
-dtype.
+dtype. A mixture-of-experts layer ('moe' in place of 'intermediate'
+and 'output') keeps its expert bank in the compute dtype: only its four
+attention matmuls quantize, so its static scales carry the JAX engine's
+keys (layer_i/attention_self/query ... layer_i/attention_output).
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ app (`create_app(engine=...)`) and the micro-batcher drive it unchanged:
     rolloff, and the plain SpeechDNN with live BatchNorm
   text: texts -> WordPiece ids/mask (host) sliced to a sequence bucket
     -> BERT (bf16: tanh GELU, int8 encoder matmuls with static scales;
-    fp32: erf GELU) -> packed [probs | CLS]
+    fp32: erf GELU) -> packed [probs | CLS]; a BERT whose config.json
+    has num_experts serves its mixture-of-experts FFN (models/moe.py:
+    per-example top-1 routing with the capacity of the bucket's padded
+    length, as in JAX; in bf16 only the attention matmuls are int8)
   image: uint8 RGB -> YUV 4:2:0 wire (bf16) or raw uint8 (fp32) ->
     device -> decode + ImageNet normalize -> ResNet50 (bf16: BN folded,
     stem pool K6, int8 bottleneck convs with static scales, layer1 K7;
@@ -136,12 +139,11 @@ KEYWORD_MAP = {
     'neutral': [],
 }
 
-# the BertForSequenceClassification fields the port builds; the MoE
-# fields of the JAX model (num_experts, moe_capacity_factor) are not
-# ported
+# the BertForSequenceClassification fields the port builds (the MoE
+# ones from a config.json written by train-text-bert --experts)
 _BERT_FIELDS = ('vocab_size', 'hidden_size', 'num_layers', 'num_heads',
                 'intermediate_size', 'max_position', 'type_vocab_size',
-                'num_classes')
+                'num_classes', 'num_experts', 'moe_capacity_factor')
 _FUSION_FIELDS = ('speech_dim', 'text_dim', 'image_dim', 'num_classes',
                   'hidden_dim')
 
@@ -418,8 +420,6 @@ class EmotionEngine:
             loaded = store.load_params(nat)
             cfg = (read_config(bert_dir) if os.path.exists(
                 os.path.join(bert_dir, 'config.json')) else {})
-            if cfg.get('num_experts'):
-                _not_ported('12 (the mixture-of-experts BERT FFN)')
             kw.update(bert_variables=loaded['variables'],
                       bert_kwargs=model_kwargs_from_config(cfg),
                       bert_vocab=WordPieceTokenizer.from_pretrained_dir(
@@ -613,8 +613,6 @@ class EmotionEngine:
         """Quantize and calibrate as the JAX engine does at load
         (engine.py:461-474, :645-680, :747-758), raising where it would
         log and serve a weaker mode; then build the model."""
-        if kwargs.get('num_experts'):
-            _not_ported('12 (the mixture-of-experts BERT FFN)')
         kwargs = {k: v for k, v in kwargs.items() if k in _BERT_FIELDS}
         if isinstance(vocab, WordPieceTokenizer):
             self.bert_tokenizer = vocab

@@ -143,7 +143,7 @@ def bert_variables(seed: int = 0, vocab_size: int = 30522,
                    hidden_size: int = 768, num_layers: int = 12,
                    intermediate_size: int = 3072,
                    max_position: int = 512, type_vocab_size: int = 2,
-                   num_classes: int = 7) -> Dict:
+                   num_classes: int = 7, num_experts: int = 0) -> Dict:
     """BERT {'params'} tree of float32 numpy arrays in the Flax layout of
     mec_tpu/models/bert.py, at the bert-base-uncased widths by default
     (its 12 heads split the hidden width and are no shape of the tree).
@@ -157,6 +157,13 @@ def bert_variables(seed: int = 0, vocab_size: int = 30522,
     starts at zero and is made by attention over the text alone; and
     the pooler is at lecun scale and the classifier at 8x lecun scale
     with zero-mean columns.
+
+    num_experts > 0: every layer's FFN is mec_tpu/models/moe.py's expert
+    bank ('moe': router {kernel (H, E) at lecun scale, so routing is
+    decided by the hidden state and not by near-ties, bias 0}; wi
+    (E, H, F), wo (E, F, H) N(0, 0.02) like the dense FFN; bi, bo 0) in
+    place of 'intermediate' and 'output', drawn after the attention of
+    its layer.
     """
     rng = np.random.RandomState(seed)
 
@@ -181,14 +188,23 @@ def bert_variables(seed: int = 0, vocab_size: int = 30522,
     params['position_embeddings']['embedding'][0] = 0.0
     params['token_type_embeddings']['embedding'][0] = 0.0
     for i in range(num_layers):
-        params[f'layer_{i}'] = {
+        layer = params[f'layer_{i}'] = {
             'attention_self': {n: dense(h, h)
                                for n in ('query', 'key', 'value')},
             'attention_output': dense(h, h),
-            'attention_norm': norm(h),
-            'intermediate': dense(h, f),
-            'output': dense(f, h),
-            'output_norm': norm(h)}
+            'attention_norm': norm(h)}
+        if num_experts > 0:
+            e = num_experts
+            layer['moe'] = {
+                'router': {'kernel': normal(h, e, std=1.0 / np.sqrt(h)),
+                           'bias': np.zeros(e, np.float32)},
+                'wi': normal(e, h, f), 'wo': normal(e, f, h),
+                'bi': np.zeros((e, f), np.float32),
+                'bo': np.zeros((e, h), np.float32)}
+        else:
+            layer['intermediate'] = dense(h, f)
+            layer['output'] = dense(f, h)
+        layer['output_norm'] = norm(h)
     params['pooler'] = {'kernel': normal(h, h, std=1.0 / np.sqrt(h)),
                         'bias': np.zeros(h, np.float32)}
     k = normal(h, num_classes, std=8.0 / np.sqrt(h))
@@ -387,7 +403,8 @@ def forest_arrays(seed: int = 0, n_trees: int = 100, depth: int = 12,
 
 def write_synthetic_artifacts(models_dir: str, *, tiny: bool = False,
                               seed: int = 0, image_arch: str = 'resnet50',
-                              image_size: int = 224) -> str:
+                              image_size: int = 224, bert_experts: int = 0,
+                              moe_capacity_factor: float = 1.25) -> str:
     """Populate `models_dir` with the JAX writer's artifacts
     (mec_tpu/serving/synthetic_artifacts.py::write_synthetic_artifacts)
     from the numpy trees above, through the port's store: the speech DNN
@@ -396,7 +413,10 @@ def write_synthetic_artifacts(models_dir: str, *, tiny: bool = False,
     fusion net with its config, and fusion_rf.mecp (100 trees of depth
     12; tiny: 8 of depth 6). No Bi-LSTM: the port does not serve one.
     Full width by default (BERT-base with vocab 30522); tiny: a 2-layer
-    BERT of width 64 over make_vocab. Returns the dir."""
+    BERT of width 64 over make_vocab. bert_experts > 0: the BERT is a
+    mixture-of-experts one (bert_variables' num_experts; its config.json
+    carries num_experts and moe_capacity_factor, as train-text-bert
+    --experts writes them). Returns the dir."""
     os.makedirs(models_dir, exist_ok=True)
     store.save_params(os.path.join(models_dir, 'speech_model.mecp'),
                       speech_variables(seed))
@@ -414,7 +434,8 @@ def write_synthetic_artifacts(models_dir: str, *, tiny: bool = False,
         heads = 12
     bert_dir = os.path.join(models_dir, 'bert_model')
     store.save_params(os.path.join(bert_dir, 'bert_model.mecp'),
-                      bert_variables(seed + 1, **widths))
+                      bert_variables(seed + 1, **widths,
+                                     num_experts=bert_experts))
     cfg = {'vocab_size': widths['vocab_size'],
            'hidden_size': widths['hidden_size'],
            'num_hidden_layers': widths['num_layers'],
@@ -422,6 +443,9 @@ def write_synthetic_artifacts(models_dir: str, *, tiny: bool = False,
            'intermediate_size': widths['intermediate_size'],
            'max_position_embeddings': widths['max_position'],
            'type_vocab_size': 2, 'num_labels': 7}
+    if bert_experts > 0:
+        cfg.update(num_experts=bert_experts,
+                   moe_capacity_factor=moe_capacity_factor)
     with open(os.path.join(bert_dir, 'config.json'), 'w') as f:
         json.dump(cfg, f)
     inv = sorted(vocab.items(), key=lambda kv: kv[1])

@@ -47,8 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mec_tpu_torch.models.batchnorm import wide
 from mec_tpu_torch.models.bert import LayerNorm
 from mec_tpu_torch.models.fusion import TorchMultiheadAttention
+from mec_tpu_torch.models.moe import MoEFFN
+from mec_tpu_torch.parallel import mesh as pmesh
 
 Schedule = Callable[[int], float]
 
@@ -272,9 +275,15 @@ class TrainState:
         return self.params[0].device
 
     def apply_gradients(self) -> None:
-        """One optimizer call on the parameters' .grad, which it clears."""
+        """One optimizer call on the parameters' .grad, which it clears.
+        Inside a data-parallel fit the gradients are first averaged over
+        the ranks (one all-reduce a dtype), so the clip's global norm is
+        the global gradient's, as in JAX."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        dmesh = pmesh.active()
+        if dmesh is not None:
+            dmesh.all_reduce_(grads, mean=True)
         self.tx.step(grads, self.opt_state, self.params)
         for p in self.params:
             p.grad = None
@@ -309,7 +318,7 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
 
 def softmax_cross_entropy(logits: torch.Tensor, onehot: torch.Tensor
                           ) -> torch.Tensor:
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(wide(logits), dim=-1)
     return -(onehot * logp).sum(dim=-1).mean()
 
 
@@ -344,19 +353,23 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def step_seed(seed: int, epoch: int, step: int) -> int:
-    """The dropout seed of one (seed, epoch, step)."""
-    return int(np.random.SeedSequence([seed, epoch, step])
+def step_seed(seed: int, epoch: int, step: int, rank: int = 0) -> int:
+    """The dropout seed of one (seed, epoch, step) on one data rank."""
+    entropy = [seed, epoch, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy)
                .generate_state(1, np.uint32)[0])
 
 
 def resolve_device(device) -> torch.device:
-    """The trainers' device: 'cuda' needs a card and never falls back."""
+    """The trainers' device: 'cuda' needs a card and never falls back;
+    without an index it is the current card (a rank's own)."""
     dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available")
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {dev}')
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
     return dev
 
 
@@ -367,13 +380,38 @@ def add_device_flag(parser) -> None:
 
 
 def no_mesh(**sizes: int) -> None:
-    """The trainers' --mesh-* flags: a mesh of more than one device is
-    not ported yet (ROADMAP.md queue A item 12)."""
+    """--mesh-model and --mesh-pipe: those axes are not ported yet
+    (ROADMAP.md queue A item 12)."""
     for flag, n in sizes.items():
         if n and int(n) > 1:
             raise NotImplementedError(
                 f'--{flag.replace("_", "-")} {n}: not ported to '
                 'mec_tpu_torch yet: ROADMAP.md queue A item 12 (parallel)')
+
+
+def data_mesh(mesh_data: int) -> Optional[pmesh.DataMesh]:
+    """The trainers' --mesh-data: None for 0 or 1, else the data axis of
+    the initialized process group, which must hold exactly mesh_data
+    ranks (parallel/mesh.make_mesh raises otherwise: never a silent run
+    on one device)."""
+    return pmesh.make_mesh(mesh_data) if mesh_data and mesh_data > 1 \
+        else None
+
+
+def writes(mesh: Optional[pmesh.DataMesh]) -> bool:
+    """Whether this process logs and writes files: rank 0 of the data
+    axis, or the only process."""
+    return mesh is None or mesh.rank == 0
+
+
+def barrier(mesh: Optional[pmesh.DataMesh]) -> None:
+    if mesh is not None:
+        mesh.barrier()
+
+
+def logger(verbose: bool, mesh: Optional[pmesh.DataMesh] = None):
+    """print on the writing rank when verbose, else a no-op."""
+    return print if verbose and writes(mesh) else (lambda *_a, **_k: None)
 
 
 def flax_init(model: nn.Module, seed: int) -> nn.Module:
@@ -385,8 +423,8 @@ def flax_init(model: nn.Module, seed: int) -> nn.Module:
     zero with running statistics at zero and one."""
     g = torch.Generator().manual_seed(seed)
 
-    def lecun(w: torch.Tensor) -> None:
-        fan_in = w[0].numel()
+    def lecun(w: torch.Tensor, fan_in: Optional[int] = None) -> None:
+        fan_in = fan_in or w[0].numel()
         std = math.sqrt(1.0 / fan_in) / .87962566103423978
         w.copy_(nn.init.trunc_normal_(torch.empty(w.shape), 0.0, std,
                                       -2 * std, 2 * std, generator=g))
@@ -411,6 +449,12 @@ def flax_init(model: nn.Module, seed: int) -> nn.Module:
             elif isinstance(m, nn.Embedding):
                 fill(m.weight, nn.init.normal_, 0.0,
                      1.0 / math.sqrt(m.weight.shape[1]))
+            elif isinstance(m, MoEFFN):
+                # Flax's fan-in of an (E, in, out) kernel: E * in
+                lecun(m.wi, m.wi.shape[0] * m.wi.shape[1])
+                lecun(m.wo, m.wo.shape[0] * m.wo.shape[1])
+                m.bi.zero_()
+                m.bo.zero_()
             elif isinstance(m, TorchMultiheadAttention):
                 fill(m.in_proj_weight, nn.init.xavier_uniform_)
                 m.in_proj_bias.zero_()
@@ -447,6 +491,7 @@ def fit(state: TrainState,
         checkpoint_path: Optional[str] = None,
         resume: bool = False,
         epoch_transform: Optional[Callable] = None,
+        mesh: Optional[pmesh.DataMesh] = None,
         ) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict[str, list]]:
     """Epoch loop with early stopping and LR on plateau (JAX
     common.fit). train_step(state, batch) -> loss tensor, with batch a
@@ -461,6 +506,20 @@ def fit(state: TrainState,
     augmentation each epoch. Every batch trains at its true shape (the
     ragged tail too); validation batches are padded with pad_batch.
 
+    mesh (parallel/mesh.make_mesh): data parallelism over its ranks, as
+    the JAX fit under a mesh. The module is broadcast from rank 0; every
+    rank draws the same batch order, pads each batch to batch_size
+    (the ragged tail too, as JAX pads under a mesh) and trains its rows
+    of it inside parallel/mesh.data_parallel (BatchNorm statistics, the
+    MoE aux loss and the gradients are the global batch's); dropout is
+    seeded per (seed, epoch, step, rank). Validation is sharded the same
+    way and its loss sum, hits and count are summed over the ranks, so
+    every rank takes the same early-stop, plateau and best-variables
+    decisions. Only rank 0 logs and writes the checkpoint (then all
+    wait); every rank restores on resume. batch_size must divide by the
+    number of ranks. (Dropout masks never match JAX's, with or without
+    a mesh: the two packages draw from different generators.)
+
     Returns (state, best_vars, history); best_vars is a CPU state dict.
     """
     from mec_tpu_torch.training import checkpoint as ckpt
@@ -474,6 +533,15 @@ def fit(state: TrainState,
     start_epoch = 0
     device = state.device
     fork_devices = [device] if device.type == 'cuda' else []
+    rank = 0
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f'batch_size {batch_size} does not split over '
+                             f'{mesh.size} data ranks')
+        mesh.broadcast_module(state.model)
+        rank = mesh.rank
+        if rank:
+            log_fn = lambda *_a, **_k: None  # noqa: E731
 
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
         state, extra = ckpt.restore_train_state(checkpoint_path, state)
@@ -498,12 +566,18 @@ def fit(state: TrainState,
         losses = []
         for step, batch in enumerate(iterate_batches(ep_data, batch_size,
                                                      ep_rng)):
-            with torch.random.fork_rng(devices=fork_devices):
-                torch.manual_seed(step_seed(seed, epoch, step))
+            if mesh is not None:
+                batch = mesh.shard_rows(pad_batch(batch, batch_size)[0])
+            with torch.random.fork_rng(devices=fork_devices), \
+                    pmesh.data_parallel(mesh):
+                torch.manual_seed(step_seed(seed, epoch, step, rank))
                 losses.append(train_step(state, to_device(batch, device))
                               .detach())
-        train_loss = (float(torch.stack(losses).float().mean())
-                      if losses else 0.0)
+        loss_mean = (torch.stack(losses).float().mean() if losses
+                     else torch.zeros((), device=device))
+        if mesh is not None:
+            mesh.all_reduce_([loss_mean], mean=True)
+        train_loss = float(loss_mean)
 
         state.model.eval()
         val_loss_sum, val_hits, val_count = 0.0, 0, 0
@@ -511,9 +585,15 @@ def fit(state: TrainState,
             for batch in iterate_batches(val_data, batch_size, ep_rng,
                                          shuffle=False):
                 padded, n = pad_batch(batch, batch_size)
+                if mesh is not None:
+                    # this rank's rows of the padded batch, of which the
+                    # first n are real
+                    per = batch_size // mesh.size
+                    padded = mesh.shard_rows(padded)
+                    n = min(max(n - rank * per, 0), per)
                 logits = eval_step(state, to_device(padded, device))
                 logits = logits.float().cpu()[:n]
-                labels = np.asarray(batch['label'][:n])
+                labels = np.asarray(padded['label'][:n])
                 if labels.ndim > 1:
                     labels = labels.argmax(axis=-1)
                 logp = torch.log_softmax(logits, dim=-1)
@@ -521,6 +601,11 @@ def fit(state: TrainState,
                 val_loss_sum += float(-logp.gather(1, lab[:, None]).sum())
                 val_hits += int((logits.argmax(dim=-1) == lab).sum())
                 val_count += n
+        if mesh is not None:
+            sums = torch.tensor([val_loss_sum, val_hits, val_count],
+                                dtype=torch.float64, device=device)
+            mesh.all_reduce_([sums])
+            val_loss_sum, val_hits, val_count = sums.tolist()
         val_loss = val_loss_sum / max(val_count, 1)
         val_acc = val_hits / max(val_count, 1)
 
@@ -556,7 +641,7 @@ def fit(state: TrainState,
 
         # checkpoint BEFORE honouring early stop, so the stopping epoch's
         # state (callback counters included) is resumable
-        if checkpoint_path:
+        if checkpoint_path and rank == 0:
             ckpt.save_train_state(
                 checkpoint_path, state,
                 extra={'epoch': epoch, 'history': history,
@@ -566,6 +651,7 @@ def fit(state: TrainState,
                        'best_epoch': best_epoch,
                        'plateau_wait': plateau_wait,
                        'stop_wait': stop_wait})
+        barrier(mesh)
 
         if on_epoch_end is not None:
             on_epoch_end(epoch, state, history)

@@ -153,9 +153,9 @@ def train(num_samples: int = 10000, epochs: int = 100,
           seed: int = 42, dataset=None, verbose: bool = True,
           device='cuda'):
     """Returns (best variables as a Flax tree, config, history)."""
-    common.no_mesh(mesh_data=mesh_data)
+    mesh = common.data_mesh(mesh_data)
     dev = common.resolve_device(device)
-    log = print if verbose else (lambda *_a, **_k: None)
+    log = common.logger(verbose, mesh)
     if dataset is None:
         log('Generating synthetic training data...')
         dataset = generate_synthetic_data(num_samples, seed)
@@ -194,7 +194,7 @@ def train(num_samples: int = 10000, epochs: int = 100,
         state, sub(tr), sub(va), train_step, eval_step,
         epochs=epochs, batch_size=batch_size, seed=seed,
         monitor='val_acc', patience=15, log_fn=log,
-        on_epoch_end=on_epoch_end)
+        on_epoch_end=on_epoch_end, mesh=mesh)
 
     model.load_state_dict(best_vars)
     padded, n = common.pad_batch(sub(va), len(va))
@@ -205,6 +205,9 @@ def train(num_samples: int = 10000, epochs: int = 100,
                                              Config.EMOTIONS))
 
     variables = to_jax(model)
+    if not common.writes(mesh):
+        common.barrier(mesh)
+        return variables, cfg, history
     models_dir = models_dir or os.path.dirname(Config.FUSION_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'fusion_model.mecp')
@@ -212,6 +215,7 @@ def train(num_samples: int = 10000, epochs: int = 100,
                       meta={'config': cfg,
                             'val_acc': float(max(history['val_acc']))})
     log(f'Saved {out}')
+    common.barrier(mesh)
     return variables, cfg, history
 
 
@@ -223,8 +227,8 @@ def main(argv=None):
     p.add_argument('--num-samples', type=int, default=10000)
     p.add_argument('--models-dir', default=None)
     p.add_argument('--mesh-data', type=int, default=0,
-                   help='data-parallel mesh size (0/1 = single device; '
-                        'more is not ported yet: ROADMAP item 12)')
+                   help='data-parallel mesh size (0/1 = single device; N: '
+                        'N ranks, one a GPU)')
     p.add_argument('--manifest', default=None,
                    help='CSV of audio_path,text,image_path,label rows: '
                         'train on real multimodal triples instead of '

@@ -96,11 +96,11 @@ def train(data_root: str, img_size: int = 224, batch_size: int = 32,
           grad_accum: int = 1, remat: bool = False, device='cuda'):
     """Returns (best variables as a Flax tree, {'phase1', 'phase2'}
     histories)."""
-    common.no_mesh(mesh_data=mesh_data)
     if arch not in ARCHS:
         raise SystemExit(f'unknown --arch {arch}')
+    mesh = common.data_mesh(mesh_data)
     dev = common.resolve_device(device)
-    log = print if verbose else (lambda *_a, **_k: None)
+    log = common.logger(verbose, mesh)
     if img_size % 2:
         raise SystemExit(f'--img-size {img_size} must be even: serving '
                          'ships YUV 4:2:0 images (2x2 chroma subsampling)')
@@ -146,7 +146,7 @@ def train(data_root: str, img_size: int = 224, batch_size: int = 32,
         state, train_data, val_data, train_step, eval_step,
         epochs=min(phase1_epochs, epochs), batch_size=batch_size,
         seed=seed, monitor='val_acc', patience=5, log_fn=log,
-        epoch_transform=epoch_transform)
+        epoch_transform=epoch_transform, mesh=mesh)
 
     remaining = max(epochs - phase1_epochs, 0)
     hist2 = {'val_acc': [0.0]}
@@ -162,7 +162,7 @@ def train(data_root: str, img_size: int = 224, batch_size: int = 32,
             state, train_data, val_data, train_step, eval_step,
             epochs=remaining, batch_size=batch_size, seed=seed + 1,
             monitor='val_acc', patience=5, log_fn=log,
-            epoch_transform=epoch_transform)
+            epoch_transform=epoch_transform, mesh=mesh)
         if max(hist2['val_acc']) >= max(hist1['val_acc']):
             best_vars = best_vars2
 
@@ -176,6 +176,10 @@ def train(data_root: str, img_size: int = 224, batch_size: int = 32,
     best_acc = max(max(hist1['val_acc']), max(hist2['val_acc']))
 
     variables = to_jax(model)
+    hists = {'phase1': hist1, 'phase2': hist2}
+    if not common.writes(mesh):
+        common.barrier(mesh)
+        return variables, hists
     models_dir = models_dir or os.path.dirname(Config.IMAGE_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'image_model.mecp')
@@ -183,7 +187,8 @@ def train(data_root: str, img_size: int = 224, batch_size: int = 32,
                       meta={'val_acc': float(best_acc), 'arch': arch,
                             'img_size': int(img_size)})
     log(f'Saved {out}')
-    return variables, {'phase1': hist1, 'phase2': hist2}
+    common.barrier(mesh)
+    return variables, hists
 
 
 def main(argv=None):
@@ -196,8 +201,8 @@ def main(argv=None):
     p.add_argument('--phase1-epochs', type=int, default=10)
     p.add_argument('--models-dir', default=None)
     p.add_argument('--mesh-data', type=int, default=0,
-                   help='data-parallel mesh size (0/1 = single device; '
-                        'more is not ported yet: ROADMAP item 12)')
+                   help='data-parallel mesh size (0/1 = single device; N: '
+                        'N ranks, one a GPU)')
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 compute under torch.autocast (params '
                         'stay float32)')

@@ -26,6 +26,7 @@ import torch
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.convert import store
 from mec_tpu_torch.convert.to_jax import to_jax
+from mec_tpu_torch.models.batchnorm import wide
 from mec_tpu_torch.models.speech_dnn import SpeechDNN
 from mec_tpu_torch.training import common, data, metrics
 
@@ -34,7 +35,7 @@ L2 = 1e-4  # Keras kernel_regularizer=l2(1e-4)
 
 def l2_penalty(model: SpeechDNN) -> torch.Tensor:
     kernels = [d.weight for d in model.dense] + [model.out.weight]
-    return L2 * sum((w.float() ** 2).sum() for w in kernels)
+    return L2 * sum((wide(w) ** 2).sum() for w in kernels)
 
 
 def make_steps(model: SpeechDNN):
@@ -63,9 +64,9 @@ def train(data_root: str = 'datasets/speech', pattern: str = '**/*.wav',
           checkpoint_path: Optional[str] = None, resume: bool = False,
           device='cuda'):
     """Returns (best variables as a Flax tree, (mean, scale), history)."""
-    common.no_mesh(mesh_data=mesh_data)
+    mesh = common.data_mesh(mesh_data)
     dev = common.resolve_device(device)
-    log = print if verbose else (lambda *_a, **_k: None)
+    log = common.logger(verbose, mesh)
     if X is None:
         X, y = data.load_speech_dataset(data_root, pattern, label_from,
                                         verbose=verbose, device=dev)
@@ -106,7 +107,8 @@ def train(data_root: str = 'datasets/speech', pattern: str = '**/*.wav',
         epochs=epochs, batch_size=batch_size, seed=seed,
         monitor='val_acc', patience=25,
         reduce_lr_factor=0.5, reduce_lr_patience=10, min_lr=1e-6,
-        log_fn=log, checkpoint_path=checkpoint_path, resume=resume)
+        log_fn=log, checkpoint_path=checkpoint_path, resume=resume,
+        mesh=mesh)
 
     # evaluation report on the best weights
     model.load_state_dict(best_vars)
@@ -116,6 +118,9 @@ def train(data_root: str = 'datasets/speech', pattern: str = '**/*.wav',
     log('\n' + metrics.classification_report(y_val, preds, Config.EMOTIONS))
 
     variables = to_jax(model)
+    if not common.writes(mesh):
+        common.barrier(mesh)
+        return variables, (mean, scale), history
     models_dir = models_dir or os.path.dirname(Config.SPEECH_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'speech_model.mecp')
@@ -124,6 +129,7 @@ def train(data_root: str = 'datasets/speech', pattern: str = '**/*.wav',
     np.savez(os.path.join(models_dir, 'speech_scaler.npz'),
              mean=mean.astype(np.float32), scale=scale.astype(np.float32))
     log(f'Saved {out} (+ scaler npz)')
+    common.barrier(mesh)
     return variables, (mean, scale), history
 
 
@@ -138,8 +144,8 @@ def main(argv=None):
     p.add_argument('--no-augment', action='store_true')
     p.add_argument('--models-dir', default=None)
     p.add_argument('--mesh-data', type=int, default=0,
-                   help='data-parallel mesh size (0/1 = single device; '
-                        'more is not ported yet: ROADMAP item 12)')
+                   help='data-parallel mesh size (0/1 = single device; N: '
+                        'N ranks, one a GPU)')
     p.add_argument('--checkpoint', default=None,
                    help='path for per-epoch full train-state checkpoints')
     p.add_argument('--resume', action='store_true',

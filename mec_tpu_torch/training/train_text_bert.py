@@ -17,8 +17,22 @@ torch.autocast(bfloat16) (the parameters stay fp32). --pretrained-dir:
 a bert_model.mecp there initialises the encoder (all but the
 classifier); an HF checkpoint without one raises NotImplementedError
 naming ROADMAP item 21 (the converters); a directory holding only
-vocab.txt gives the vocab and a random init, as in JAX. --mesh-*,
---seq-parallel and --experts raise NotImplementedError naming item 12.
+vocab.txt gives the vocab and a random init, as in JAX.
+
+--experts N swaps every layer's FFN for N top-1-routed experts
+(models/moe.py); the loss is the cross-entropy plus 0.01 times the sum
+of the layers' load-balancing losses, and config.json gets num_experts
+and moe_capacity_factor. A dense pretrained encoder cannot initialise an
+MoE one: the JAX trainer copies its dense layers over the MoE layers and
+then fails at the first step for want of the expert bank (ROADMAP queue
+C), so this one raises up front. --experts with --mesh-pipe exits as in
+JAX.
+
+--mesh-data N trains over the N ranks of an initialized process group
+(parallel/mesh.py; python -m mec_tpu_torch starts them), each on its
+rows of every global batch. --mesh-model, --mesh-pipe (so --experts
+with --mesh-model > 1, expert parallelism) and --seq-parallel raise
+NotImplementedError naming ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -52,24 +66,27 @@ WIDTHS = {'vocab_size': ('vocab_size', 30522),
           'num_classes': ('num_labels', 7)}
 
 
-def make_steps(model: BertForSequenceClassification, bf16: bool = False):
+def make_steps(model: BertForSequenceClassification, bf16: bool = False,
+               moe_aux_weight: float = 0.01):
     dev_type = next(model.parameters()).device.type
 
-    def forward(batch):
+    def forward(batch, aux=False):
         with torch.autocast(dev_type, torch.bfloat16, enabled=bf16):
-            logits, _cls = model(batch['ids'], batch['mask'])
-        return logits
+            return model(batch['ids'], batch['mask'], return_aux=aux)
 
     def train_step(state: common.TrainState, batch):
-        logits = forward(batch)
+        logits, _cls, aux = forward(batch, aux=True)
         onehot = F.one_hot(batch['label'].long(), logits.shape[-1])
         loss = common.softmax_cross_entropy(logits, onehot)
+        if aux:
+            # the MoE layers' load-balancing losses (models/moe.py)
+            loss = loss + moe_aux_weight * sum(aux)
         loss.backward()
         state.apply_gradients()
         return loss
 
     def eval_step(state: common.TrainState, batch):
-        return forward(batch)
+        return forward(batch)[0]
 
     return train_step, eval_step
 
@@ -83,7 +100,8 @@ def tokenize_corpus(tokenizer: WordPieceTokenizer, texts,
 def init_from_pretrained(model: BertForSequenceClassification,
                          bert_dir: str, log=print) -> None:
     """Load the encoder (every top-level node but the classifier) from
-    bert_dir/bert_model.mecp when there is one."""
+    bert_dir/bert_model.mecp when there is one. Its layers must have the
+    model's FFN kind (dense or MoE)."""
     if not bert_dir or not os.path.isdir(bert_dir):
         return
     nat = os.path.join(bert_dir, 'bert_model.mecp')
@@ -99,6 +117,17 @@ def init_from_pretrained(model: BertForSequenceClassification,
         return
     pre = store.load_params(nat)['variables']['params']
     variables = to_jax(model)
+    for k, v in variables['params'].items():
+        if k.startswith('layer_') and k in pre \
+                and ('moe' in v) != ('moe' in pre[k]):
+            raise ValueError(
+                f'{nat}: its {k} is '
+                f'{"an MoE" if "moe" in pre[k] else "a dense"} layer and the '
+                f'model\'s is {"an MoE" if "moe" in v else "a dense"} one '
+                f'(--experts {model.num_experts}): a pretrained encoder '
+                f'initialises only a model with the same FFN (the JAX '
+                f'trainer copies the dense layers over the MoE ones and '
+                f'then fails for want of the expert bank)')
     for k in variables['params']:
         if k in pre and k != 'classifier':
             variables['params'][k] = pre[k]
@@ -118,14 +147,17 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
           experts: int = 0, grad_accum: int = 1, remat: bool = False,
           bf16: bool = False, device='cuda'):
     """Returns (best variables as a Flax tree, history)."""
-    common.no_mesh(mesh_data=mesh_data, mesh_model=mesh_model,
-                   mesh_pipe=mesh_pipe)
-    if seq_parallel or experts:
+    if seq_parallel:
         raise NotImplementedError(
-            f'--seq-parallel / --experts: not ported to mec_tpu_torch yet: '
-            f'ROADMAP.md queue A item 12 (parallel, MoE)')
+            '--seq-parallel: not ported to mec_tpu_torch yet: ROADMAP.md '
+            'queue A item 12 (sequence parallelism)')
+    if experts > 0 and mesh_pipe > 1:
+        raise SystemExit('--experts with --mesh-pipe is not supported '
+                         '(the pipeline stage apply is dense-FFN only)')
+    common.no_mesh(mesh_model=mesh_model, mesh_pipe=mesh_pipe)
+    mesh = common.data_mesh(mesh_data)
     dev = common.resolve_device(device)
-    log = print if verbose else (lambda *_a, **_k: None)
+    log = common.logger(verbose, mesh)
     if texts is None:
         texts, labels = data.load_text_dataset(csv_path, fold_labels=False,
                                                verbose=verbose)
@@ -160,6 +192,8 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
     log(f'Training set: {len(tr)}  validation set: {len(va)}')
 
     model_kwargs = dict(model_kwargs or {})
+    if experts > 0:
+        model_kwargs.setdefault('num_experts', experts)
     widths = {k: model_kwargs.get(k, d) for k, (_c, d) in WIDTHS.items()}
     model = BertForSequenceClassification(**model_kwargs, remat=remat)
     common.flax_init(model, seed)
@@ -192,7 +226,7 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
     state, best_vars, history = common.fit(
         state, train_data, val_data, train_step, eval_step,
         epochs=epochs, batch_size=batch_size, seed=seed,
-        monitor='val_acc', log_fn=log)
+        monitor='val_acc', mesh=mesh, log_fn=log)
 
     model.load_state_dict(best_vars)
     padded, n = common.pad_batch(val_data, len(va))
@@ -203,12 +237,18 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
                                              Config.EMOTIONS))
 
     variables = to_jax(model)
+    if not common.writes(mesh):
+        common.barrier(mesh)
+        return variables, history
     models_dir = models_dir or Config.BERT_MODEL_PATH
     os.makedirs(models_dir, exist_ok=True)
     store.save_params(os.path.join(models_dir, 'bert_model.mecp'),
                       variables,
                       meta={'val_acc': float(max(history['val_acc']))})
     cfg = {c: int(widths[k]) for k, (c, _d) in WIDTHS.items()}
+    if model.num_experts > 0:
+        cfg['num_experts'] = model.num_experts
+        cfg['moe_capacity_factor'] = model.moe_capacity_factor
     with open(os.path.join(models_dir, 'config.json'), 'w') as f:
         json.dump(cfg, f, indent=2)
     vocab_out = os.path.join(models_dir, 'vocab.txt')
@@ -221,6 +261,7 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
         with open(vocab_out, 'w', encoding='utf-8') as f:
             f.write('\n'.join(lines))
     log(f'Saved BERT artifacts to {models_dir}')
+    common.barrier(mesh)
     return variables, history
 
 
@@ -237,7 +278,7 @@ def main(argv=None):
                         'vocab')
     not_ported = ' (more than 1 is not ported yet: ROADMAP item 12)'
     p.add_argument('--mesh-data', type=int, default=0,
-                   help='data-parallel axis size' + not_ported)
+                   help='data-parallel axis size: N ranks, one a GPU')
     p.add_argument('--mesh-model', type=int, default=0,
                    help='tensor-parallel axis size for the encoder'
                         + not_ported)
@@ -254,8 +295,10 @@ def main(argv=None):
                    help='recompute encoder-layer activations in the '
                         'backward pass (torch.utils.checkpoint)')
     p.add_argument('--experts', type=int, default=0,
-                   help='Mixture-of-Experts FFN (not ported yet: ROADMAP '
-                        'item 12)')
+                   help='Mixture-of-Experts FFN: swap every encoder '
+                        'layer\'s dense FFN for N top-1-routed experts '
+                        '(models/moe.py; expert parallelism over '
+                        '--mesh-model is not ported yet: ROADMAP item 12)')
     p.add_argument('--seq-parallel', action='store_true',
                    help='Megatron sequence parallelism (not ported yet: '
                         'ROADMAP item 12)')

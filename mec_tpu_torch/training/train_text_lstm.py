@@ -52,9 +52,9 @@ def train(csv_path: str, epochs: int = 10, batch_size: int = 32,
           seed: int = 42, texts=None, labels=None, verbose: bool = True,
           device='cuda'):
     """Returns (best variables as a Flax tree, tokenizer, history)."""
-    common.no_mesh(mesh_data=mesh_data)
+    mesh = common.data_mesh(mesh_data)
     dev = common.resolve_device(device)
-    log = print if verbose else (lambda *_a, **_k: None)
+    log = common.logger(verbose, mesh)
     max_length = max_length or Config.MAX_TEXT_LENGTH
     if texts is None:
         texts, labels = data.load_text_dataset(csv_path, fold_labels=True,
@@ -88,7 +88,7 @@ def train(csv_path: str, epochs: int = 10, batch_size: int = 32,
         train_step, eval_step,
         epochs=epochs, batch_size=batch_size, seed=seed,
         monitor='val_acc', patience=5,
-        reduce_lr_factor=0.5, reduce_lr_patience=3, log_fn=log)
+        reduce_lr_factor=0.5, reduce_lr_patience=3, log_fn=log, mesh=mesh)
 
     # test-set report on the best weights
     model.load_state_dict(best_vars)
@@ -101,6 +101,9 @@ def train(csv_path: str, epochs: int = 10, batch_size: int = 32,
     log(metrics.classification_report(labels[te], preds, Config.EMOTIONS))
 
     variables = to_jax(model)
+    if not common.writes(mesh):
+        common.barrier(mesh)
+        return variables, tokenizer, history
     models_dir = models_dir or os.path.dirname(Config.TEXT_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'text_model.mecp')
@@ -109,6 +112,7 @@ def train(csv_path: str, epochs: int = 10, batch_size: int = 32,
     tokenizer.to_json_file(os.path.join(models_dir,
                                         'text_model_tokenizer.json'))
     log(f'Saved {out} (+ tokenizer json)')
+    common.barrier(mesh)
     return variables, tokenizer, history
 
 
@@ -121,8 +125,8 @@ def main(argv=None):
     p.add_argument('--max-length', type=int, default=Config.MAX_TEXT_LENGTH)
     p.add_argument('--models-dir', default=None)
     p.add_argument('--mesh-data', type=int, default=0,
-                   help='data-parallel mesh size (0/1 = single device; '
-                        'more is not ported yet: ROADMAP item 12)')
+                   help='data-parallel mesh size (0/1 = single device; N: '
+                        'N ranks, one a GPU)')
     common.add_device_flag(p)
     args = p.parse_args(argv)
     train(args.csv, args.epochs, args.batch_size, args.vocab_size,

@@ -178,15 +178,25 @@ def test_engine_device_is_explicit():
         EmotionEngine(device='meta')
 
 
-@pytest.mark.parametrize('call,item', [
-    (lambda: EmotionEngine(bert_variables={'params': {}},
-                           bert_kwargs={'num_experts': 4},
-                           device='cpu'), '12'),
-])
-def test_unported_modalities_name_their_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf'ROADMAP\.md queue A item {item} '):
-        call()
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_unported_modalities_name_their_roadmap_item(dtype):
+    """The mixture-of-experts BERT, the last modality that raised here
+    (item 12), is served now: an engine given MoE bert_kwargs builds
+    the MoE model and predicts (bf16: int8 attention, bf16 experts)."""
+    from mec_tpu_torch.serving.synthetic_artifacts import (bert_variables,
+                                                           make_vocab)
+    vocab = make_vocab()
+    widths = dict(vocab_size=max(vocab.values()) + 1, hidden_size=32,
+                  num_layers=2, intermediate_size=64, max_position=128)
+    eng = EmotionEngine(bert_variables=bert_variables(2, **widths,
+                                                      num_experts=4),
+                        bert_kwargs=dict(widths, num_heads=2, num_experts=4,
+                                         moe_capacity_factor=1.25),
+                        bert_vocab=vocab, compute_dtype=dtype, device='cpu')
+    assert eng.bert['model'].layer_0.moe.num_experts == 4
+    out = eng.predict_texts(['i am so happy today', 'this is sad'])
+    assert [len(r['all_probabilities']) for r in out] == [7, 7]
+    assert all(abs(sum(r['all_probabilities']) - 1) < 1e-3 for r in out)
 
 
 # ----------------------------------------------------------------------

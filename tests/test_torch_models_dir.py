@@ -28,7 +28,6 @@ Tolerances, each with its reason:
 * fallbacks and the copies of host modules: equal.
 """
 
-import json
 import logging
 import os
 import re
@@ -369,8 +368,6 @@ def test_facade_copies_match_originals(name):
     {'num_experts': 4, 'moe_capacity_factor': 2.0}])
 def test_hf_config_copy_matches_original(cfg):
     ref = hf_bert.model_kwargs_from_config(cfg)
-    ref.pop('num_experts', None)
-    ref.pop('moe_capacity_factor', None)
     assert hf_config.model_kwargs_from_config(cfg) == ref
 
 
@@ -443,14 +440,19 @@ def test_rf_mode_without_forest_serves_attention(tiny_dir, tmp_path,
     assert 'no fusion_rf artifact' in caplog.text
 
 
-def test_moe_config_raises_item_12(tiny_dir, tmp_path):
-    d = _copy(tiny_dir, tmp_path / 'm')
-    cfg = hf_config.read_config(os.path.join(d, 'bert_model'))
-    cfg['num_experts'] = 4
-    with open(os.path.join(d, 'bert_model', 'config.json'), 'w') as f:
-        json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match='item 12 '):
-        EmotionEngine.from_models_dir(d, device='cpu')
+def test_moe_config_raises_item_12(tmp_path):
+    """An MoE config.json serves (it raised naming item 12 before the
+    port had the MoE BERT): from_models_dir builds the MoE model from
+    num_experts and moe_capacity_factor."""
+    d = sa.write_synthetic_artifacts(str(tmp_path / 'm'), tiny=True,
+                                     image_arch='mobilenet_v2',
+                                     image_size=32, bert_experts=2,
+                                     moe_capacity_factor=2.0)
+    eng = EmotionEngine.from_models_dir(d, device='cpu')
+    moe = eng.bert['model'].layer_1.moe
+    assert (moe.num_experts, moe.capacity_factor) == (2, 2.0)
+    out = eng.predict_texts(TEXTS)
+    assert all(len(r['all_probabilities']) == 7 for r in out)
 
 
 def test_config_paths_without_models_dir(tiny_dir, monkeypatch):

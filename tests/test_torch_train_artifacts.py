@@ -223,14 +223,16 @@ def test_cli_lists_the_train_commands_and_their_flags(capsys):
         'train-speech': ('--data-root', '--pattern', '--label-from',
                          '--no-augment', '--mesh-data', '--checkpoint',
                          '--resume'),
-        'train-text-lstm': ('--csv', '--vocab-size', '--max-length'),
-        'train-text-bert': ('--pretrained-dir', '--mesh-model',
-                            '--mesh-pipe', '--microbatches', '--grad-accum',
-                            '--remat', '--experts', '--seq-parallel',
-                            '--bf16', '--no-seq-bucket'),
+        'train-text-lstm': ('--csv', '--vocab-size', '--max-length',
+                            '--mesh-data'),
+        'train-text-bert': ('--pretrained-dir', '--mesh-data',
+                            '--mesh-model', '--mesh-pipe', '--microbatches',
+                            '--grad-accum', '--remat', '--experts',
+                            '--seq-parallel', '--bf16', '--no-seq-bucket'),
         'train-image': ('--img-size', '--phase1-epochs', '--bf16',
-                        '--grad-accum', '--remat', '--arch'),
-        'train-fusion': ('--learning-rate', '--num-samples', '--manifest'),
+                        '--grad-accum', '--remat', '--arch', '--mesh-data'),
+        'train-fusion': ('--learning-rate', '--num-samples', '--manifest',
+                         '--mesh-data'),
         'train-fusion-rf': ('--n-estimators', '--max-depth', '--manifest'),
     }
     for cmd, want in flags.items():
@@ -240,3 +242,7 @@ def test_cli_lists_the_train_commands_and_their_flags(capsys):
         text = capsys.readouterr().out
         for flag in want + ('--models-dir', '--device'):
             assert flag in text, (cmd, flag)
+        # the data axis is ported: its help names no unported item
+        if '--mesh-data' in want:
+            line = text[text.index('--mesh-data'):].split('--', 2)[1]
+            assert 'not ported' not in line, (cmd, line)

@@ -17,9 +17,10 @@ the BatchNorm update.
 * the BatchNorm step is Flax's: the running statistics after one step
   equal flax.linen.BatchNorm's (within 1e-6 of the largest), and torch's
   own nn.BatchNorm update misses them (unbiased variance);
-* what is not ported raises naming its ROADMAP item, device='cuda'
-  without a card raises, and --pretrained-dir's bert_model.mecp
-  initialises every node but the classifier.
+* what is not ported raises naming its ROADMAP item, --mesh-data
+  without its process group raises, device='cuda' without a card
+  raises, and --pretrained-dir's bert_model.mecp initialises every node
+  but the classifier.
 """
 
 import os
@@ -272,18 +273,23 @@ def test_batchnorm_step_is_flax_not_torch():
 
 
 def test_trainers_refuse_what_is_not_ported(tmp_path):
-    """The mesh flags, --seq-parallel and --experts name ROADMAP item 12;
-    an HF BERT directory without bert_model.mecp names item 21;
-    device='cuda' without a card raises (never a silent CPU run)."""
+    """--mesh-model, --mesh-pipe and --seq-parallel name ROADMAP item
+    12; --mesh-data above 1 without a process group of that size raises
+    (never a silent run on one device); an HF BERT directory without
+    bert_model.mecp names item 21; device='cuda' without a card raises
+    (never a silent CPU run)."""
     texts = np.array(['a b', 'c d'] * 7, dtype=object)
     labels = (np.arange(14) % 7).astype(np.int32)
     kw = dict(csv_path=None, texts=texts, labels=labels, verbose=False,
               device='cpu')
-    for bad in ({'mesh_model': 2}, {'mesh_pipe': 2}, {'mesh_data': 4},
-                {'seq_parallel': True}, {'experts': 4}):
+    for bad in ({'mesh_model': 2}, {'mesh_pipe': 2},
+                {'seq_parallel': True}):
         with pytest.raises(NotImplementedError, match='item 12'):
             train_text_bert.train(**kw, **bad)
-    with pytest.raises(NotImplementedError, match='item 12'):
+    with pytest.raises(RuntimeError, match='needs a torch.distributed '
+                                           'group of 4 ranks'):
+        train_text_bert.train(**kw, mesh_data=4)
+    with pytest.raises(RuntimeError, match='group of 2 ranks'):
         train_speech.train(X=np.zeros((7, 56), np.float32), y=labels[:7],
                            mesh_data=2, device='cpu', verbose=False)
     (tmp_path / 'pytorch_model.bin').write_bytes(b'')
