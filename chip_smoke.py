@@ -17,7 +17,10 @@ whose BERT is a mixture of experts served in the tri-modal step (K1-K4,
 K6, K7); and training: the six trainers on the card, and the directory
 they write served (K2 in the speech trainer's dataset load; K1-K4, K6,
 K7 serving it), the MoE BERT trainer, and data-parallel training over
-torch.distributed (two gloo ranks sharing the card, one NCCL rank).
+torch.distributed (two gloo ranks sharing the card, one NCCL rank);
+serving data parallelism (two replicas of the models sharing the card,
+K1-K4, K6, K7 on each) and the BERT trainer's tensor, sequence, expert
+and pipeline parallelism (two gloo ranks sharing the card).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
@@ -142,6 +145,24 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               variables (the gradient all-reduce a multi-GPU machine
               runs); python -m mec_tpu_torch train-fusion --mesh-data 2
               must refuse on one card, naming the visible GPU count
+  6e. dp2     serving data parallelism: a full-width directory (BERT-base,
+              ResNet50 224 px, attention fusion, a fitted speech scaler)
+              served by get_engine(dir, mesh=['cuda:0', 'cuda:0']) in bf16,
+              tri-modal requests at B=1, 8, 32 through
+              predict_multimodal_batch: K1-K4, K6, K7 launched once a
+              replica a dispatch, K5 never; each replica's rows bit for
+              bit a single-replica engine's on the same rows at the same
+              per-replica bucket, the whole within
+              dp_scaling.SERVE_DP_BAND (0.02) of mesh=None, the scales
+              the single engine's; fp32 within 1e-5; host walls at B=1,
+              32 with one and two replicas. The BERT trainer's model and
+              pipe axes: two gloo ranks sharing
+              the card at BERT-base widths, seq 128, B=8, float64, for
+              TP=2, TP=2 with SP, EP (E=4 over 2) and PP=2 (M=2): loss,
+              clip norm and gradients after the reduce, gathered to the
+              whole tree, against one process within 1e-10 of the
+              largest gradient; train-text-bert --mesh-model 2 must
+              refuse on one card, naming the visible GPU count
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
               in a marked torch.profiler range of the same 30 calls,
@@ -165,7 +186,8 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
   8. report   the card's name and power limit; a JSON line of the seven
               kernels (name, route, source, replaces, launches and
               launches on the tri-modal paths (launches_by_path: the
-              dense engines', the MoE engine's), launches_per_dispatch
+              dense engines', the MoE engine's, the two-replica engine's
+              of 6e), launches_per_dispatch, serve_dp_launches_per_dispatch
               (and moe_launches_per_dispatch), max_abs_err,
               ms by events, device_ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
               bound_peak 'memory', 'fp32', 'bf16_tc' or 'int8_tc',
@@ -1085,9 +1107,9 @@ def dp_grads(device, mesh):
                                         train_text_bert)
 
     class Recording(common.Tx):
-        def step(self, grads, state, params):
+        def step(self, grads, state, params, norm_fn=None):
             self.grads = [g.double().cpu().numpy() for g in grads]
-            super().step(grads, state, params)
+            super().step(grads, state, params, norm_fn)
 
     rng = np.random.RandomState(3)
     B = 16
@@ -1269,6 +1291,170 @@ def dp_phase(card):
           f'refused on {n_gpu} visible GPU: '
           f'{cli.stderr.strip().splitlines()[-1][:200]}')
     print(f'dp phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
+
+
+# phase 6e: serving data parallelism (two replicas sharing the card) and
+# the BERT trainer's model and pipe axes (two gloo ranks sharing it)
+SERVE_DP_TOL32 = 1e-5      # fp32 rows of the replicas against one engine
+AXES_TOL = 1e-10           # float64 gradients, relative to the largest
+
+
+def serve_dp_phase(card, wrappers):
+    """6e (serving). get_engine(dir, mesh=['cuda:0', 'cuda:0']) on a
+    full-width directory (BERT-base, ResNet50 224 px, attention fusion),
+    bf16: tri-modal requests at B=1, 8, 32 through predict_multimodal_
+    batch, each of K1-K4, K6, K7 launched once a replica a dispatch;
+    every replica's rows bit for bit those of a single-replica engine fed
+    the same rows at the same per-replica bucket, the whole within
+    dp_scaling.SERVE_DP_BAND of mesh=None; fp32 within SERVE_DP_TOL32.
+    The directory's speech scaler is fitted to seeded clips (bench/dp_scaling.
+    fit_speech_scaler: with the writer's identity scaler the tiny logits'
+    rounding says nothing of the split). Returns (launch counts, tri-modal
+    dispatches)."""
+    import torch
+
+    from mec_tpu_torch.bench import dp_scaling
+    from mec_tpu_torch.config import Config
+    from mec_tpu_torch.ops.quant import extract_static_scales
+    from mec_tpu_torch.serving.engine import EmotionEngine, get_engine
+    from mec_tpu_torch.serving.synthetic_artifacts import \
+        write_synthetic_artifacts
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_serve_dp_')
+    write_synthetic_artifacts(tmp.name, seed=MODELS_SEED)
+    dp_scaling.fit_speech_scaler(tmp.name, waves(32, 97))
+    inputs = {B: (waves(B, 40 + B), (TEXTS * 4)[:B], images(B, 50 + B))
+              for B in (1, 8, 32)}
+    saved = Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION
+    Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = \
+        'attention', 'bfloat16', 'high'
+    try:
+        one = EmotionEngine.from_models_dir(tmp.name, device='cuda',
+                                            mesh=None)
+        eng = get_engine(tmp.name, reload=True,
+                         mesh=['cuda:0', 'cuda:0'])
+        check(len(eng.replicas) == 2 and eng._all_live
+              and all(r.device == torch.device('cuda', 0)
+                      for r in eng.replicas)
+              and eng._bucket(1) == 2 and eng._bucket(9) == 32,
+              'get_engine(mesh=[cuda:0, cuda:0]) did not build two replicas')
+        for what in ('bert', 'image'):
+            check(extract_static_scales(getattr(eng, what)['variables'])
+                  == extract_static_scales(getattr(one, what)['variables']),
+                  f'serve dp: the replicas\' {what} int8 scales are not the '
+                  f'single engine\'s')
+        eng.warmup((1,))
+        for w in wrappers.values():
+            w.launches = 0
+        for B, (w, t, im) in inputs.items():
+            out = eng.predict_multimodal_batch(
+                [{'audio_path': f'{i}.wav', 'text': t[i],
+                  'image_path': f'{i}.png', 'wave': w[i], 'image': im[i]}
+                 for i in range(B)])
+            check(len(out) == B and all(set(r) == {'speech', 'text', 'image',
+                                                   'fusion'} for r in out),
+                  f'serve dp: B={B} results malformed')
+        counts = {name: w.launches for name, w in wrappers.items()}
+        want = {n: 2 * len(inputs) for n in wrappers}
+        want['dft_spectrograms'] = 0
+        check(counts == want, f'serve dp: launches {counts}, expected each '
+              f'of K1-K4, K6, K7 once a replica a dispatch: {want}')
+        errs = {}
+        for B, (w, t, im) in inputs.items():
+            exact, errs[B] = dp_scaling.replica_check(eng, one, w, t, im)
+            check(exact, f'serve dp bf16 B={B}: a replica\'s rows differ '
+                  f'from the single-replica engine on the same rows')
+            check(errs[B] <= dp_scaling.SERVE_DP_BAND,
+                  f'serve dp bf16 B={B}: {errs[B]} from mesh=None > '
+                  f'{dp_scaling.SERVE_DP_BAND}')
+        walls = {}
+        for B in (1, 32):
+            w, t, im = inputs[B]
+            for name, e in (('1 replica', one), ('2 replicas', eng)):
+                walls[name, B] = dp_scaling.host_wall_ms(
+                    lambda: e._run_trimodal(w, t, im), reps=10)
+        print('serve dp bf16 (2 replicas sharing cuda:0, get_engine(mesh=)): '
+              'K1-K4, K6, K7 launched once a replica a dispatch '
+              f'({2 * len(inputs)} in {len(inputs)} dispatches, B=1, 8, '
+              '32); each replica\'s rows bit for bit the single-replica '
+              'engine\'s on the same rows; against mesh=None max|err| '
+              + ', '.join(f'B={B} {e:.3e}' for B, e in errs.items())
+              + f' (band {dp_scaling.SERVE_DP_BAND}); tri-modal dispatch '
+              'host wall '
+              + ', '.join(f'{n} B={B} {ms:.3f} ms'
+                          for (n, B), ms in walls.items()) + f'; {card}')
+        del eng, one
+        Config.COMPUTE_DTYPE = 'float32'
+        one = EmotionEngine.from_models_dir(tmp.name, device='cuda',
+                                            mesh=None)
+        two = EmotionEngine.from_models_dir(tmp.name, device='cuda',
+                                            mesh=['cuda:0', 'cuda:0'])
+        errs32 = {}
+        for B, (w, t, im) in inputs.items():
+            _exact, errs32[B] = dp_scaling.replica_check(two, one, w, t, im)
+        check(max(errs32.values()) <= SERVE_DP_TOL32,
+              f'serve dp fp32: {errs32} > {SERVE_DP_TOL32}')
+        print('serve dp fp32 (2 replicas sharing cuda:0): against mesh=None '
+              'max|err| ' + ', '.join(f'B={B} {e:.3e}'
+                                      for B, e in errs32.items())
+              + f' <= {SERVE_DP_TOL32}; {card}')
+        del one, two
+    finally:
+        Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = saved
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+    print(f'serve dp phase wall: {time.perf_counter() - t_phase:.1f} s; '
+          f'{card}')
+    return counts, len(inputs)
+
+
+def axes_phase(card):
+    """6e (training). Two gloo ranks sharing the card at BERT-base widths
+    (12 x 768, 12 heads, 3072), seq 128, B=8, float64: tensor parallelism
+    over model=2, with sequence parallelism, expert parallelism (an MoE
+    BERT-base of 4 experts, 2 a rank) and a pipeline of 2 stages with 2
+    microbatches; each layout's loss, clip norm and gradients after the
+    reduce, gathered to the whole tree, against one process on the same
+    batch within AXES_TOL of the largest gradient (bench/dp_scaling.
+    layout_rank). Then train-text-bert --mesh-model 2 must refuse on one
+    card, naming the visible GPU count."""
+    import torch
+
+    from mec_tpu_torch.bench import dp_scaling
+    from mec_tpu_torch.parallel import launch
+    t_phase = time.perf_counter()
+    layouts = ['1x2x1', '1x2x1s', '1x2x1e4', '1x1x2']
+    names = {'1x2x1': 'TP=2', '1x2x1s': 'TP=2 + SP', '1x2x1e4': 'EP (E=4 '
+             'over 2)', '1x1x2': 'PP=2 (M=2)'}
+    ranks = launch.launch(dp_scaling.layout_rank, 2,
+                          args=(layouts, False, 0, False, 2),
+                          devices=['cuda:0', 'cuda:0'], backend='gloo',
+                          timeout=900)
+    got = ranks[0]
+    for spec in layouts:
+        r = got[spec]
+        check(max(r['grad_rel'], r['norm_rel'], r['loss_err']) <= AXES_TOL,
+              f'axes {names[spec]}: {r} > {AXES_TOL}')
+    print('axes (2 gloo ranks sharing cuda:0, BERT-base widths, seq 128, '
+          'B=8, float64; gradients after the reduce gathered to the whole '
+          'tree against one process): ' + '; '.join(
+              f'{names[s]} max|err| {got[s]["grad_rel"]:.2e} of the largest '
+              f'gradient ({got[s]["grad_max"]:.2e}), loss '
+              f'{got[s]["loss_err"]:.2e}, clip norm {got[s]["norm_rel"]:.2e} '
+              f'relative' for s in layouts) + f' <= {AXES_TOL}; {card}')
+    cli = subprocess.run(
+        [sys.executable, '-m', 'mec_tpu_torch', 'train-text-bert',
+         '--mesh-model', '2', '--csv', 'none.csv', '--epochs', '1'],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    n_gpu = torch.cuda.device_count()
+    check(cli.returncode != 0 and 'needs 2 GPUs' in cli.stderr
+          and f'{n_gpu} is visible' in cli.stderr,
+          f'train-text-bert --mesh-model 2 on {n_gpu} GPU did not refuse: '
+          f'{cli.returncode} {cli.stderr[-1000:]}')
+    print(f'axes cli: python -m mec_tpu_torch train-text-bert --mesh-model 2 '
+          f'refused on {n_gpu} visible GPU: '
+          f'{cli.stderr.strip().splitlines()[-1][:200]}; {card}')
+    print(f'axes phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
 
 
 def main():
@@ -2072,6 +2258,10 @@ def main():
     # -------------------------------------------------- 6d data-parallel
     dp_phase(card)
 
+    # ------------------------------------- 6e serving DP, model/pipe axes
+    dp_serve_launches, dp_serve_dispatches = serve_dp_phase(card, wrappers)
+    axes_phase(card)
+
     # ----------------------------------------------------------- 7 times
     # the models phase first: the MobileNetV2 image step, the rf
     # tri-modal step, the forest walk and MobileNetV2's depthwise conv
@@ -2339,9 +2529,13 @@ def main():
         b_ms, b_by, b_peak = bounds[name]
         e = {'name': name, 'route': 'cuda', 'source': sources[name][0],
              'replaces': sources[name][1],
-             'launches': tri_launches[name] + moe_launches[name],
+             'launches': (tri_launches[name] + moe_launches[name]
+                          + dp_serve_launches[name]),
              'launches_by_path': {'trimodal': tri_launches[name],
-                                  'moe_trimodal': moe_launches[name]},
+                                  'moe_trimodal': moe_launches[name],
+                                  'serve_dp': dp_serve_launches[name]},
+             'serve_dp_launches_per_dispatch': dp_serve_launches[name]
+             / dp_serve_dispatches,
              'launches_per_dispatch': per_dispatch[name],
              'moe_launches_per_dispatch': moe_launches[name]
              / moe_dispatches,

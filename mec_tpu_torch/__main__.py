@@ -4,11 +4,13 @@ The port of mec_tpu/__main__.py's dispatcher, with its six train
 commands; each trainer module has main(argv) taking the JAX trainer's
 flags plus --device (default cuda). Dispatch is lazy: only the selected
 command's module is imported. A train command with --mesh-data N > 1
-runs in N ranks, one process a device (parallel/launch.py: cuda:0 ..
-cuda:N-1, or N CPU ranks over gloo with --device cpu; fewer visible GPUs
-than N raises), unless this process is already one rank of a group
-(torchrun's or the MEC_* variables, parallel/distributed.py), in which
-case it initializes that group and runs its own rank. The JAX package's
+(train-text-bert: --mesh-data D, --mesh-model M, --mesh-pipe P, any
+above 1) runs in N = D*M*P ranks, one process a device
+(parallel/launch.py: cuda:0 .. cuda:N-1, or N CPU ranks over gloo with
+--device cpu; fewer visible GPUs than N raises), unless this process is
+already one rank of a group (torchrun's or the MEC_* variables,
+parallel/distributed.py), in which case it initializes that group and
+runs its own rank. The JAX package's
 other commands are not ported yet, and the dispatcher names the
 ROADMAP.md queue A item that holds each.
 """
@@ -16,6 +18,7 @@ ROADMAP.md queue A item that holds each.
 from __future__ import annotations
 
 import importlib
+import math
 import sys
 from typing import List, Optional
 
@@ -82,14 +85,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f'mec_tpu_torch: unknown command {cmd!r}{hint}\n\n' + _usage(),
               file=sys.stderr)
         return 2
-    n = _flag_value(argv[1:], '--mesh-data')
-    if n is not None and int(n) > 1:
+    axes = [(f, int(_flag_value(argv[1:], f) or 0))
+            for f in ('--mesh-data', '--mesh-model', '--mesh-pipe')]
+    n = math.prod(max(1, v) for _f, v in axes)
+    if n > 1:
         from mec_tpu_torch.parallel import distributed, launch
         if not distributed.initialize_multi_host():
             device = _flag_value(argv[1:], '--device') or 'cuda'
-            launch.launch(launch.run_module_main, int(n),
+            what = ' '.join(f'{f} {v}' for f, v in axes if v > 1)
+            launch.launch(launch.run_module_main, n,
                           args=(entry[0], argv[1:]),
-                          devices=launch.devices_for(int(n), device))
+                          devices=launch.devices_for(n, device, what))
             return 0
     mod = importlib.import_module(entry[0])
     rc = mod.main(argv[1:])

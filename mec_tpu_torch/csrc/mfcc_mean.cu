@@ -58,6 +58,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "reduce.cuh"
 #include "trace.cuh"
 
@@ -280,16 +281,9 @@ extern "C" int mec_mfcc_mean(const float* P, int batch, int n_frames, int n_bins
   const int frames_per = kFrames / split;
   const int bytes = smem_floats(frames_per, n_bins, n_taps) * (int)sizeof(float);
   if (split > kWarps * partials_per_row(n_bins)) return (int)cudaErrorInvalidValue;
-  static int configured_bytes = -1;
-  if (bytes > configured_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mfcc_mean_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(mfcc_mean_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    configured_bytes = bytes;
-  }
+  static mec::SmemGrant grant;
+  const int granted = mec::grant_smem(mfcc_mean_kernel, bytes, grant, true);
+  if (granted) return granted;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * split);
   cfg.blockDim = dim3(kThreads);

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kMaxWarps = 8;
@@ -118,13 +120,9 @@ extern "C" int mec_rolloff_bins(const float* mag, int R, int F, float roll_perce
   if ((reinterpret_cast<uintptr_t>(mag) & 3) != 0) return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   const int bytes = warps * row_floats(F) * (int)sizeof(float);
-  static int configured_bytes = 48 * 1024;              // what a launch gets unasked
-  if (bytes > configured_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rolloff_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured_bytes = bytes;
-  }
+  static mec::SmemGrant grant(48 * 1024);               // what a launch gets unasked
+  const int granted = mec::grant_smem(rolloff_bins_kernel, bytes, grant);
+  if (granted) return granted;
   const int blocks = (R + warps - 1) / warps;
   rolloff_bins_kernel<<<blocks, warps * 32, bytes, (cudaStream_t)stream>>>(
       mag, R, F, roll_percent, out);

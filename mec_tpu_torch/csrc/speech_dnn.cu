@@ -59,6 +59,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "trace.cuh"
 
 namespace cg = cooperative_groups;
@@ -352,16 +353,10 @@ speech_dnn_kernel(const float* __restrict__ x, const float* __restrict__ params,
   run_layers<0>(cluster, params, plan, act, weights, red, vals, logits, row0, nrows, out);
 }
 
-// the kernel's attributes, set at the first launch
+// the kernel's attributes, set at the first launch on each device
 cudaError_t configure() {
-  static const cudaError_t status = [] {
-    cudaError_t err = cudaFuncSetAttribute(
-        speech_dnn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(speech_dnn_kernel,
-                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }();
-  return status;
+  static mec::SmemGrant grant;
+  return (cudaError_t)mec::grant_smem(speech_dnn_kernel, kSmemBytes, grant, true);
 }
 
 // log2 of n when n is a power of two, else -1

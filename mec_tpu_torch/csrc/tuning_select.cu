@@ -77,6 +77,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "reduce.cuh"
 #include "trace.cuh"
 
@@ -417,13 +418,9 @@ extern "C" int mec_tuning_select(const float* mags, const float* residual,
   if (K < 1 || split < 1 || split > kMaxSplit) return (int)cudaErrorInvalidValue;
   if (batch == 0) return 0;
   const int bytes = 2 * K * (int)sizeof(uint32_t);
-  static int configured_bytes = -1;
-  if (bytes > configured_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tuning_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured_bytes = bytes;
-  }
+  static mec::SmemGrant grant;
+  const int granted = mec::grant_smem(tuning_select_kernel, bytes, grant);
+  if (granted) return granted;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * split);
   cfg.blockDim = dim3(kThreads);

@@ -33,8 +33,18 @@ padding tokens never route, and forward(..., return_aux=True) also
 returns the layers' load-balancing losses, one a layer. Under quant=True
 only q, k, v and attention_output are int8; the expert bank stays in
 the compute dtype, as in JAX (ops/quant.quantize_bert_params skips
-`moe`). Not ported: sequence parallelism and expert parallelism (ROADMAP
-queue A item 12).
+`moe`).
+
+Tensor, sequence and expert parallelism (parallel/partition.shard_bert,
+over the mesh's 'model' axis): a layer whose `tp` is set holds its
+column slice of q, k, v and `intermediate` (and the heads of it) and its
+row slice of `attention_output` and `output`, or its experts' slice of
+the bank, and runs the Megatron pattern through tp.enter / tp.exit
+(identity in, all-reduce out; with sequence parallelism all-gather of
+the sequence in, reduce-scatter out, the residual stream, LayerNorms
+and dropout then on this rank's sequence shard); the row layers' biases
+are added once, after the reduction. A block whose widths do not split
+stays whole on every rank (tp.enter / tp.exit with sharded=False).
 
 Training (module.training, the unquantized form): dropout_rate (HF's
 hidden_dropout_prob, 0.1) after the embeddings' LayerNorm and after the
@@ -102,23 +112,22 @@ class BertSelfAttention(nn.Module):
                                         quant_mode))
         # jnp.sqrt(head_dim) in f32, cast to the compute dtype; a tensor,
         # so CUDA divides (a host-scalar division is a reciprocal multiply)
-        hd = hidden // heads
+        hd = self.head_dim = hidden // heads
         self.register_buffer('scale', torch.sqrt(
             torch.tensor(float(hd), dtype=torch.float32)).to(dtype),
             persistent=False)
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        B, L, H = h.shape
-        nh = self.heads
+        B, L, _H = h.shape
 
         def split(t):
-            return t.reshape(B, L, nh, H // nh).transpose(1, 2)
+            return t.reshape(B, L, -1, self.head_dim).transpose(1, 2)
 
         q, k, v = split(self.query(h)), split(self.key(h)), split(self.value(h))
         scores = (q @ k.transpose(-1, -2)) / self.scale
         scores = scores + bias[:, None, None, :]
         probs = torch.softmax(wide(scores), dim=-1).to(self.dtype)
-        return (probs @ v).transpose(1, 2).reshape(B, L, H)
+        return (probs @ v).transpose(1, 2).reshape(B, L, -1)
 
 
 class BertLayer(nn.Module):
@@ -140,10 +149,16 @@ class BertLayer(nn.Module):
                                       quant_mode)
             self.output = dense(inter, hidden, dtype, quant, quant_mode)
         self.output_norm = LayerNorm(hidden, 1e-12, dtype)
+        # parallel/partition.shard_bert: the 'model' axis and which blocks
+        # hold a slice
+        self.tp = None
+        self.attn_sharded = self.ffn_sharded = False
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """The next hidden state; an MoE layer returns (it, aux loss)."""
+        if self.tp is not None:
+            return self._forward_tp(h, bias)
         ctx = self.attention_output(self.attention_self(h, bias))
         h = self.attention_norm(h + ctx)
         if hasattr(self, 'moe'):
@@ -151,6 +166,32 @@ class BertLayer(nn.Module):
             return self.output_norm(h + out), aux
         inter = F.gelu(self.intermediate(h), approximate=self.gelu)
         return self.output_norm(h + self.output(inter))
+
+    @staticmethod
+    def _row(layer: nn.Module, x: torch.Tensor, tp) -> torch.Tensor:
+        """A row-parallel Dense: this rank's partial product, reduced over
+        'model', then the bias once."""
+        return tp.exit(F.linear(x.to(layer.weight.dtype), layer.weight),
+                       True) + layer.bias
+
+    def _forward_tp(self, h: torch.Tensor, bias: torch.Tensor):
+        """forward on this rank's slices (parallel/partition.py); h is
+        this rank's sequence shard under sequence parallelism."""
+        tp = self.tp
+        x = tp.enter(h, self.attn_sharded)
+        ctx = self.attention_self(x, bias)
+        att = (self._row(self.attention_output, ctx, tp) if self.attn_sharded
+               else tp.exit(self.attention_output(ctx), False))
+        h = self.attention_norm(h + att)
+        if hasattr(self, 'moe'):
+            out, aux = self.moe(tp.enter(h, False), bias > -1.0)
+            return self.output_norm(h + tp.exit(out, self.moe.ep is not None)
+                                    ), aux
+        x = tp.enter(h, self.ffn_sharded)
+        inter = F.gelu(self.intermediate(x), approximate=self.gelu)
+        out = (self._row(self.output, inter, tp) if self.ffn_sharded
+               else tp.exit(self.output(inter), False))
+        return self.output_norm(h + out)
 
 
 class BertForSequenceClassification(nn.Module):
@@ -167,6 +208,15 @@ class BertForSequenceClassification(nn.Module):
         self.dtype, self.remat = dtype, remat
         self.num_experts = num_experts
         self.moe_capacity_factor = moe_capacity_factor
+        # the widths, for a whole model rebuilt from shards
+        # (parallel/partition.gather_bert)
+        self.config = dict(
+            vocab_size=vocab_size, hidden_size=hidden_size,
+            num_layers=num_layers, num_heads=num_heads,
+            intermediate_size=intermediate_size, max_position=max_position,
+            type_vocab_size=type_vocab_size, num_classes=num_classes,
+            num_experts=num_experts, moe_capacity_factor=moe_capacity_factor)
+        self.tp = None      # parallel/partition.shard_bert
         self.dropout = nn.Dropout(dropout_rate)
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size,
                                             dtype=dtype)
@@ -203,6 +253,8 @@ class BertForSequenceClassification(nn.Module):
         h = (self.word_embeddings(ids) + self.position_embeddings(pos)[None]
              + self.token_type_embeddings(torch.zeros_like(ids)))
         h = self.dropout(self.embeddings_norm(h))
+        if self.tp is not None:
+            h = self.tp.scatter(h)     # sequence parallelism: this shard
         bias = ((1.0 - attention_mask.float()) * self.neg).to(self.dtype)
         aux = []
         for i in range(self.num_layers):
@@ -212,6 +264,8 @@ class BertForSequenceClassification(nn.Module):
             if self.num_experts > 0:
                 h, a = h
                 aux.append(a)
+        if self.tp is not None:
+            h = self.tp.gather(h)
         cls = h[:, 0, :]
         pooled = self.dropout(torch.tanh(self.pooler(cls)))
         logits = self.classifier(pooled)

@@ -36,8 +36,18 @@ not the mean of per-rank products).
 
 router_jitter (train time only, default 0; BertLayer never sets it)
 multiplies the logits by U(1 - j, 1 + j) drawn from the explicit
-torch.Generator given as `generator`. Not ported here: ep_axis (expert
-parallelism over a 'model' mesh axis, ROADMAP queue A item 12).
+torch.Generator given as `generator`.
+
+Expert parallelism (JAX's ep_axis over the mesh's 'model' axis; set by
+parallel/partition.shard_bert): with `ep` set, this rank holds experts
+[expert_offset, expert_offset + E/m) of the E in wi, wo, bi, bo. The
+router stays whole and every rank routes every token, so routing,
+capacity and positions are unchanged; the rank runs its own experts'
+slots and returns its part of the gate-weighted combine (zero for
+tokens routed elsewhere), which the caller sums over 'model'. The
+tokens' rows and the gates enter the expert path through ep.copy
+(identity forward, all-reduce backward), so their gradients, like the
+router's, are whole on every rank.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ class MoEFFN(nn.Module):
         self.wo = nn.Parameter(torch.empty(E, Fi, H))
         self.bi = nn.Parameter(torch.zeros(E, Fi))
         self.bo = nn.Parameter(torch.zeros(E, H))
+        self.ep, self.expert_offset = None, 0
 
     def forward(self, hidden: torch.Tensor,
                 mask: Optional[torch.Tensor] = None
@@ -98,6 +109,8 @@ class MoEFFN(nn.Module):
             onehot = F.one_hot(expert, E).to(acc) * m[..., None]
             gate = (probs * onehot).sum(dim=-1)                  # (B, L)
             aux = self._aux(onehot, probs, m)
+            if self.ep is not None:
+                x, gate = self.ep.copy(x), self.ep.copy(gate)
 
             # 1-based position within the expert where routed; past C drops
             pos = ((torch.cumsum(onehot, dim=1) * onehot).sum(dim=-1)
@@ -115,7 +128,9 @@ class MoEFFN(nn.Module):
             rows = torch.cat([x.reshape(B * L, H), x.new_zeros(1, H)])
             xin = rows[src[:n_slots]].to(self.dtype)             # (B*E*C, H)
 
-        xin = xin.reshape(B, E, C, H).transpose(0, 1).reshape(E, B * C, H)
+        xin = xin.reshape(B, E, C, H).transpose(0, 1)
+        lo, n_local = self.expert_offset, self.wi.shape[0]
+        xin = xin[lo:lo + n_local].reshape(n_local, B * C, H)
         h = torch.bmm(xin, self.wi.to(self.dtype)) \
             + self.bi.to(self.dtype)[:, None, :]
         h = F.gelu(h, approximate=self.gelu)
@@ -123,7 +138,13 @@ class MoEFFN(nn.Module):
             + self.bo.to(self.dtype)[:, None, :]                 # (E, B*C, H)
 
         with torch.autocast(hidden.device.type, enabled=False):
-            out = out.reshape(E, B, C, H).transpose(0, 1).reshape(n_slots, H)
+            out = out.reshape(n_local, B, C, H).transpose(0, 1)
+            if n_local < E:
+                # the other ranks' experts' slots: zero here
+                out = torch.cat([out.new_zeros(B, lo, C, H), out,
+                                 out.new_zeros(B, E - lo - n_local, C, H)],
+                                dim=1)
+            out = out.reshape(n_slots, H)
             out = torch.cat([out.to(acc), out.new_zeros(1, H, dtype=acc)])
             y = out[slot].reshape(B, L, H) * gate[..., None]
         return y.to(self.dtype), aux

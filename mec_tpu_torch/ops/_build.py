@@ -5,7 +5,8 @@ one more nvcc call links the objects into a shared library with a plain
 C interface, at first use, into mec_tpu_torch/_build/ (git-ignored). The
 output name carries a hash of the sources and flags, so an edited kernel
 rebuilds and an unchanged one is reused. The library is loaded with
-ctypes; each wrapper passes tensor pointers and the current CUDA stream
+ctypes; each wrapper makes its tensor's card the current device
+(device_of), passes tensor pointers and that card's current CUDA stream
 as integers and raises on a nonzero cudaError_t.
 
 A failed build raises with nvcc's output. Nothing falls back: a CUDA
@@ -136,6 +137,14 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_of(device: torch.device):
+    """The context each wrapper's library call runs in: the tensor's card
+    is the host thread's current device, so the kernel launches there
+    (on its stream) and its attributes are set in that card's context,
+    whichever card the caller had current."""
+    return torch.cuda.device(device)
 
 
 _count_lock = threading.Lock()

@@ -156,10 +156,11 @@ def dft_spectrograms(frames: torch.Tensor, precision: str = 'highest'
     P = torch.empty((B, T, N_BINS), dtype=torch.float32,
                     device=frames.device)
     mag = torch.empty_like(P)
-    err = _lib().mec_dft_power(
-        frames.data_ptr(), cos.data_ptr(), sin.data_ptr(), nyq.data_ptr(),
-        B * T, N_FFT, N_BINS, int(precision == 'bf16'), bm, bn,
-        P.data_ptr(), mag.data_ptr(), _build.stream(frames.device))
+    with _build.device_of(frames.device):
+        err = _lib().mec_dft_power(
+            frames.data_ptr(), cos.data_ptr(), sin.data_ptr(), nyq.data_ptr(),
+            B * T, N_FFT, N_BINS, int(precision == 'bf16'), bm, bn,
+            P.data_ptr(), mag.data_ptr(), _build.stream(frames.device))
     _build.check_error(err, 'dft_spectrograms')
     _build.count_launch(dft_spectrograms)
     return mag, P

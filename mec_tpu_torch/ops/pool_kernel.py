@@ -50,8 +50,10 @@ def max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
                          '16-byte aligned rows')
     out = torch.empty((B, (H + 1) // 2, (W + 1) // 2, C),
                       dtype=torch.bfloat16, device=x.device)
-    err = _lib().mec_max_pool_3x3s2(x.data_ptr(), B, H, W, C, out.data_ptr(),
-                                    _build.stream(x.device))
+    with _build.device_of(x.device):
+        err = _lib().mec_max_pool_3x3s2(x.data_ptr(), B, H, W, C,
+                                        out.data_ptr(),
+                                        _build.stream(x.device))
     _build.check_error(err, 'max_pool_3x3s2')
     _build.count_launch(max_pool_3x3s2)
     return out

@@ -141,10 +141,11 @@ def layer1(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
     wq, kscale, bias, ascale = _pointer_tables(blocks, dev)
     scratch = torch.empty(M * SCRATCH_BYTES, dtype=torch.int8, device=dev)
     out = torch.empty((B, H, W, 256), dtype=torch.bfloat16, device=dev)
-    err = _lib().mec_layer1_int8(
-        x.data_ptr(), B, H, W, wq, kscale, bias, ascale,
-        scratch.data_ptr(), out.data_ptr(), pixel_tile(M),
-        _build.stream(dev))
+    with _build.device_of(dev):
+        err = _lib().mec_layer1_int8(
+            x.data_ptr(), B, H, W, wq, kscale, bias, ascale,
+            scratch.data_ptr(), out.data_ptr(), pixel_tile(M),
+            _build.stream(dev))
     _build.check_error(err, 'layer1')
     _build.count_launch(layer1)
     return out

@@ -84,9 +84,10 @@ def rolloff_bins(mag2d: torch.Tensor, roll_percent: float = 0.85
     _build.check_cuda(mag2d, 'rolloff_bins', torch.float32)
     R, F = mag2d.shape
     out = torch.empty(R, dtype=torch.int32, device=mag2d.device)
-    err = _lib().mec_rolloff_bins(mag2d.data_ptr(), R, F, roll_percent,
-                                  rows_per_block(R), out.data_ptr(),
-                                  _build.stream(mag2d.device))
+    with _build.device_of(mag2d.device):
+        err = _lib().mec_rolloff_bins(mag2d.data_ptr(), R, F, roll_percent,
+                                      rows_per_block(R), out.data_ptr(),
+                                      _build.stream(mag2d.device))
     _build.check_error(err, 'rolloff_bins')
     _build.count_launch(rolloff_bins)
     return out

@@ -174,10 +174,11 @@ def mfcc_mean(P: torch.Tensor) -> torch.Tensor:
     taps, runs, dct, n_taps = _kernel_tables(P.device)
     B = P.shape[0]
     out = torch.empty((B, N_MFCC), dtype=torch.float32, device=P.device)
-    err = _lib_mfcc().mec_mfcc_mean(
-        P.data_ptr(), B, N_FRAMES, N_BINS, taps.data_ptr(), n_taps,
-        runs.data_ptr(), dct.data_ptr(), frame_split(B), out.data_ptr(),
-        _build.stream(P.device))
+    with _build.device_of(P.device):
+        err = _lib_mfcc().mec_mfcc_mean(
+            P.data_ptr(), B, N_FRAMES, N_BINS, taps.data_ptr(), n_taps,
+            runs.data_ptr(), dct.data_ptr(), frame_split(B), out.data_ptr(),
+            _build.stream(P.device))
     _build.check_error(err, 'mfcc_mean')
     _build.count_launch(mfcc_mean)
     return out
@@ -285,9 +286,10 @@ def speech_dnn(x: torch.Tensor, params: torch.Tensor,
     _build.check_cuda(params, 'speech_dnn params', torch.float32)
     B = x.shape[0]
     out = torch.empty((B, PACKED_COLS), dtype=torch.float32, device=x.device)
-    err = _lib_dnn().mec_speech_dnn(
-        x.data_ptr(), params.data_ptr(), _c_dims(dims), len(dims) - 1, B,
-        DNN_CLUSTER, out.data_ptr(), _build.stream(x.device))
+    with _build.device_of(x.device):
+        err = _lib_dnn().mec_speech_dnn(
+            x.data_ptr(), params.data_ptr(), _c_dims(dims), len(dims) - 1, B,
+            DNN_CLUSTER, out.data_ptr(), _build.stream(x.device))
     _build.check_error(err, 'speech_dnn')
     _build.count_launch(speech_dnn)
     return out

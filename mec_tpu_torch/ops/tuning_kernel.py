@@ -179,11 +179,12 @@ def tuning_select(mags: torch.Tensor, residual: torch.Tensor,
                          f'({smem_bytes(K)} of {SMEM_LIMIT_BYTES} bytes)')
     best = torch.empty(B, dtype=torch.int32, device=mags.device)
     has = torch.empty(B, dtype=torch.bool, device=mags.device)
-    err = _lib().mec_tuning_select(
-        mags.data_ptr(), residual.data_ptr(), pitches.data_ptr(), B, K,
-        cluster_split(B), _edges(mags.device).data_ptr(), best.data_ptr(),
-        has.data_ptr(),
-        _build.stream(mags.device))
+    with _build.device_of(mags.device):
+        err = _lib().mec_tuning_select(
+            mags.data_ptr(), residual.data_ptr(), pitches.data_ptr(), B, K,
+            cluster_split(B), _edges(mags.device).data_ptr(), best.data_ptr(),
+            has.data_ptr(),
+            _build.stream(mags.device))
     _build.check_error(err, 'tuning_select')
     _build.count_launch(tuning_select)
     return best, has

@@ -27,9 +27,11 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 
 
-def devices_for(n: int, device='cuda') -> List[str]:
+def devices_for(n: int, device='cuda', what: Optional[str] = None
+                ) -> List[str]:
     """n ranks' devices: cuda:0 .. cuda:n-1 for a CUDA device type (all
-    must be visible), else n times the CPU."""
+    must be visible), else n times the CPU. what: the flags that asked
+    for n ranks, for the error (default --mesh-data n)."""
     kind = torch.device(device).type
     if kind == 'cpu':
         return ['cpu'] * n
@@ -38,9 +40,9 @@ def devices_for(n: int, device='cuda') -> List[str]:
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if visible < n:
         raise RuntimeError(
-            f'--mesh-data {n} needs {n} GPUs, one a rank, and {visible} '
-            f'{"is" if visible == 1 else "are"} visible: the data axis is '
-            f'never shrunk (ranks sharing a card need the gloo backend: '
+            f'{what or f"--mesh-data {n}"} needs {n} GPUs, one a rank, and '
+            f'{visible} {"is" if visible == 1 else "are"} visible: the mesh '
+            f'is never shrunk (ranks sharing a card need the gloo backend: '
             f'parallel.launch.launch(..., devices=..., backend="gloo"))')
     return [f'cuda:{i}' for i in range(n)]
 

@@ -31,7 +31,23 @@ app (`create_app(engine=...)`) and the micro-batcher drive it unchanged:
     over the three softmax outputs instead -> (B, 28) [s | t | i | rf 7]
   -> result dicts
 
-Batches pad up to Config.BATCH_BUCKETS, as in the JAX engine. The device
+Batches pad up to Config.BATCH_BUCKETS, as in the JAX engine. Serving
+data parallelism (the JAX engine's mesh, engine.py:112-127) is asked
+for: mesh=None (the default) serves one device; with mesh='auto' and a
+CUDA device without an index while more than one card is visible, the
+engine holds one replica of every served model on each card of the data
+axis (parallel/mesh.local_mesh_shape: MEC_MESH_DATA, MEC_MESH_MODEL; a
+model column's cards would compute the same rows, so the first card of
+each serves, as the JAX engine replicates the params over 'model'), and
+a device with an index ('cuda:1') stays that one card; an explicit
+device list is used as given (two replicas may share a card; a card
+that is not visible raises). The static int8 scales are calibrated once, on the
+first device, and every replica is a copy of that one's models. The
+bucket rounds up to a multiple of the replica count, the padded batch
+splits into contiguous row blocks, one a replica, each device step runs
+on its block (all replicas' launches are queued from the calling thread
+before any result is fetched, so the cards overlap) and the packed rows
+are gathered back in order. The device
 is explicit and never auto-detected; on 'cpu' every kernel wrapper runs
 its plain PyTorch version, on 'cuda' the hand-written kernels. Nothing
 is caught around the device work: where the JAX engine logs and serves
@@ -73,6 +89,7 @@ built next skips the calibration. Deviations from the JAX loader:
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import threading
@@ -113,6 +130,7 @@ from mec_tpu_torch.ops.quant import (calibrate_static_scales,
                                      quantize_bert_params,
                                      quantize_image_params)
 from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
+from mec_tpu_torch.parallel.mesh import local_mesh_shape
 from mec_tpu_torch.serving import wire
 from mec_tpu_torch.text.cleaning import clean_text
 from mec_tpu_torch.text.keras_tokenizer import KerasTokenizer
@@ -232,9 +250,59 @@ def make_parity_speech_dnn(variables: Dict, device):
     return forward
 
 
+def resolve_mesh(mesh, device: torch.device) -> List[torch.device]:
+    """The data replicas' devices (the JAX engine's mesh argument): None
+    -> [device]; 'auto' -> the first card of each data row of
+    local_mesh_shape over the visible cards when device is a CUDA device
+    with no index and more than one card is visible, else [device] (a
+    card named by its index stays the one card: the caller chose it); a
+    sequence of devices as given, each checked to exist."""
+    if mesh is None:
+        return [device]
+    if isinstance(mesh, str):
+        if mesh != 'auto':
+            raise ValueError(f"mesh {mesh!r}: expected 'auto', None or a "
+                             f'list of devices')
+        n = (torch.cuda.device_count()
+             if device.type == 'cuda' and device.index is None else 1)
+        if n <= 1:
+            return [device]
+        data, model = local_mesh_shape(n)
+        return [torch.device('cuda', d * model) for d in range(data)]
+    devices = [torch.device(d) for d in mesh]
+    if not devices:
+        raise ValueError('mesh: an empty device list')
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    for d in devices:
+        if d.type == 'cuda' and (d.index or 0) >= visible:
+            raise RuntimeError(
+                f'mesh names {d} and {visible} CUDA '
+                f'{"device is" if visible == 1 else "devices are"} visible: '
+                f'the data axis is never shrunk')
+        if d.type not in ('cuda', 'cpu'):
+            raise ValueError(f'unsupported device {d}')
+    return [torch.device('cuda', torch.cuda.current_device())
+            if d.type == 'cuda' and d.index is None else d for d in devices]
+
+
+def _move(x, device: torch.device):
+    """A replica's copy of a device-resident value: modules deep-copied
+    onto `device`, tensors copied there, containers walked; host values
+    (numpy trees, metas) shared."""
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x).to(device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _move(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_move(v, device) for v in x)
+    return x
+
+
 class EmotionEngine:
     """Owns the speech, text, image and fusion parameters on one device
-    and serves batches."""
+    (a replica on each device of its mesh) and serves batches."""
 
     WEIGHTS = [0.3, 0.35, 0.35]  # speech, text, image (reference :23)
     IMAGE_FALLBACK_LABEL = 'neutral'
@@ -255,7 +323,8 @@ class EmotionEngine:
                  lstm_variables: Optional[Dict] = None,
                  lstm_tokenizer: Optional[KerasTokenizer] = None,
                  artifact_paths: Optional[Dict[str, str]] = None,
-                 compute_dtype: Optional[str] = None, device):
+                 compute_dtype: Optional[str] = None, device,
+                 mesh: Any = None):
         """Parameters are the JAX package's Flax trees of numpy arrays;
         a modality whose tree is None serves its fallback.
 
@@ -285,8 +354,11 @@ class EmotionEngine:
         whose speech leg is the rFFT frontend of
         audio_features_56(precision='parity') and the live-BN
         SpeechDNN); None reads Config.COMPUTE_DTYPE. device: 'cpu' or 'cuda[:n]', never
-        guessed."""
-        self.device = torch.device(device)
+        guessed. mesh: None (one device), 'auto' or a device list
+        (resolve_mesh); the first device builds and calibrates, the
+        others get copies."""
+        devices = resolve_mesh(mesh, torch.device(device))
+        self.device = devices[0]
         if self.device.type == 'cuda':
             if not torch.cuda.is_available():
                 raise RuntimeError("device='cuda' but no CUDA device is "
@@ -332,7 +404,8 @@ class EmotionEngine:
                         if self.compute_dtype == torch.bfloat16
                         else make_parity_speech_dnn)
             self.speech = {'dnn': make_dnn(speech_variables, self.device),
-                           'scaler': (mean, scale)}
+                           'scaler': (mean, scale),
+                           'variables': speech_variables}
         self._image_size = tuple(Config.IMAGE_SIZE)
         self._image_folded = self._image_quant = False
         self._image_quant_mode = 'dynamic'
@@ -386,11 +459,32 @@ class EmotionEngine:
                 log.warning('MEC_FUSION_MODE=rf but no fusion_rf artifact '
                             '(%s); serving attention fusion',
                             Config.FUSION_RF_MODEL_PATH)
+        self.replicas: List['EmotionEngine'] = [self] + [
+            self._replica(d) for d in devices[1:]]
+
+    def _replica(self, device: torch.device) -> 'EmotionEngine':
+        """This engine's models on `device`: the same calibrated trees
+        and modules, copied (the speech DNN rebuilt from its tree, as the
+        fused kernel's parameters are packed at build)."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.replicas = [rep]
+        for name in ('image', 'bert', 'fusion', 'lstm', 'forest'):
+            setattr(rep, name, _move(getattr(self, name), device))
+        if self.speech is not None:
+            make_dnn = (make_speech_dnn
+                        if self.compute_dtype == torch.bfloat16
+                        else make_parity_speech_dnn)
+            rep.speech = dict(self.speech,
+                              dnn=make_dnn(self.speech['variables'], device),
+                              scaler=_move(self.speech['scaler'], device))
+        return rep
 
     @classmethod
     def from_models_dir(cls, models_dir: Optional[str] = None, *,
                         compute_dtype: Optional[str] = None,
-                        device='cuda') -> 'EmotionEngine':
+                        device='cuda', mesh: Any = None
+                        ) -> 'EmotionEngine':
         """The engine over a models directory (JAX engine.py:279-513):
         each artifact is the .mecp at the basename of its Config path
         under models_dir (models_dir None: the Config path itself). A
@@ -455,7 +549,7 @@ class EmotionEngine:
                           forest_meta=rf['meta'])
         return cls(speech['variables'] if speech else None, scaler,
                    artifact_paths=paths, compute_dtype=compute_dtype,
-                   device=device, **kw)
+                   device=device, mesh=mesh, **kw)
 
     @staticmethod
     def _validate_forest(meta: Dict[str, Any]) -> Tuple[int, ...]:
@@ -484,11 +578,35 @@ class EmotionEngine:
         return classes
 
     def _bucket(self, n: int) -> int:
-        return _bucket_for(n)
+        """The batch bucket for n rows, rounded up to a multiple of the
+        replica count so it splits over them (JAX engine.py:515-519)."""
+        d = len(self.replicas)
+        return -(-_bucket_for(n) // d) * d
 
     def _to_device(self, arrays) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in arrays)
+
+    def _run(self, step: str, *args) -> np.ndarray:
+        """Device step `step` (a method name) over the replicas: each
+        argument is a host array or a tuple of them (a wire), every one
+        with the bucket's rows leading. Replica r takes the r-th
+        contiguous block of rows on its device; every block is launched
+        before any is fetched, and the packed outputs come back
+        concatenated in row order, as numpy."""
+        d = len(self.replicas)
+        rows = (args[0][0] if isinstance(args[0], tuple) else args[0]).shape[0]
+        per = rows // d
+
+        def block(a, r):
+            if isinstance(a, tuple):
+                return self.replicas[r]._to_device(
+                    x[r * per:(r + 1) * per] for x in a)
+            return self.replicas[r]._to_device((a[r * per:(r + 1) * per],))[0]
+
+        outs = [getattr(rep, step)(*(block(a, r) for a in args))
+                for r, rep in enumerate(self.replicas)]
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     @property
     def _compress(self) -> bool:
@@ -557,8 +675,8 @@ class EmotionEngine:
 
     def _run_speech(self, waves: np.ndarray):
         b = self._bucket(waves.shape[0])
-        out = self._speech_forward(self._to_device(self._wire_waves(waves, b)))
-        packed = out[:waves.shape[0]].cpu().numpy()
+        packed = self._run('_speech_forward',
+                           self._wire_waves(waves, b))[:waves.shape[0]]
         n_cls = self.speech['dnn'].n_classes
         return packed[:, :n_cls], packed[:, n_cls:]
 
@@ -729,8 +847,8 @@ class EmotionEngine:
         if self.bert is None:
             return [self.text_keyword_heuristic(t) for t in texts]
         b = self._bucket(len(texts))
-        packed = self._text_forward(*self._to_device(
-            self._text_wire(texts, b)))[:len(texts)].cpu().numpy()
+        packed = self._run('_text_forward',
+                           *self._text_wire(texts, b))[:len(texts)]
         n = len(EMOTIONS)
         out = []
         for i in range(len(texts)):
@@ -755,8 +873,7 @@ class EmotionEngine:
         ids = self.lstm_tokenizer.encode_batch(cleaned,
                                                Config.MAX_TEXT_LENGTH)
         b = self._bucket(ids.shape[0])
-        probs = self._lstm_forward(*self._to_device(
-            (_pad_rows(ids, b),)))[:len(texts)].cpu().numpy()
+        probs = self._run('_lstm_forward', _pad_rows(ids, b))[:len(texts)]
         return [result_dict(p) for p in probs]
 
     # ------------------------------------------------------------------
@@ -871,8 +988,8 @@ class EmotionEngine:
 
     def _run_image(self, imgs: np.ndarray):
         b = self._bucket(imgs.shape[0])
-        out = self._image_forward(self._to_device(self._wire_image(imgs, b)))
-        packed = out[:imgs.shape[0]].cpu().numpy()
+        packed = self._run('_image_forward',
+                           self._wire_image(imgs, b))[:imgs.shape[0]]
         return packed[:, :len(EMOTIONS)], packed[:, len(EMOTIONS):]
 
     def image_fallback(self) -> Dict[str, Any]:
@@ -1021,11 +1138,9 @@ class EmotionEngine:
         in rf mode)."""
         n = len(texts)
         b = self._bucket(n)
-        out = self._trimodal_forward(
-            self._to_device(self._wire_waves(waves, b)),
-            *self._to_device(self._text_wire(texts, b)),
-            self._to_device(self._wire_image(imgs, b)))
-        return out[:n].cpu().numpy()
+        return self._run('_trimodal_forward', self._wire_waves(waves, b),
+                         *self._text_wire(texts, b),
+                         self._wire_image(imgs, b))[:n]
 
     def _trimodal_result(self, row: np.ndarray) -> Dict[str, Dict]:
         return {'speech': result_dict(row[:7]),
@@ -1209,18 +1324,18 @@ class EmotionEngine:
             if self.image is not None:
                 self._run_image(imgs)
             if self.lstm is not None:
-                self._lstm_forward(*self._to_device(
-                    (np.zeros((b, Config.MAX_TEXT_LENGTH), np.int32),)))
+                self._run('_lstm_forward',
+                          np.zeros((b, Config.MAX_TEXT_LENGTH), np.int32))
             if self.bert is None:
                 continue
-            w_wire = self._to_device(self._wire_waves(waves, b))
-            i_wire = self._to_device(self._wire_image(imgs, b))
+            w_wire = self._wire_waves(waves, b)
+            i_wire = self._wire_image(imgs, b)
             for s in seqs:
-                ids, mask = self._to_device((np.zeros((b, s), np.int32),
-                                             np.ones((b, s), np.int32)))
-                self._text_forward(ids, mask)
+                ids, mask = (np.zeros((b, s), np.int32),
+                             np.ones((b, s), np.int32))
+                self._run('_text_forward', ids, mask)
                 if self._all_live:
-                    self._trimodal_forward(w_wire, ids, mask, i_wire)
+                    self._run('_trimodal_forward', w_wire, ids, mask, i_wire)
 
 
 _engine: Optional[EmotionEngine] = None
@@ -1228,13 +1343,14 @@ _engine_lock = threading.Lock()
 
 
 def get_engine(models_dir: Optional[str] = None, reload: bool = False, *,
-               device='cuda') -> EmotionEngine:
+               device='cuda', mesh: Any = None) -> EmotionEngine:
     """The process-wide engine (JAX engine.py:1511-1517), built by
-    EmotionEngine.from_models_dir on `device` at the first call or with
+    EmotionEngine.from_models_dir on `device` (over `mesh`; 'auto': every
+    visible card of the data axis) at the first call or with
     reload=True; later calls return it whatever they pass."""
     global _engine
     with _engine_lock:
         if _engine is None or reload:
             _engine = EmotionEngine.from_models_dir(models_dir,
-                                                    device=device)
+                                                    device=device, mesh=mesh)
         return _engine

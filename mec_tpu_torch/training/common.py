@@ -191,18 +191,20 @@ class Tx:
                          acc=[torch.zeros_like(p) for p in params])
         return state
 
-    def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+    def _clip(self, grads: List[torch.Tensor],
+              norm_fn: Optional[Callable] = None) -> List[torch.Tensor]:
+        norm = (norm_fn or global_norm)(grads)
         scale = torch.where(norm < self.clipnorm, torch.ones_like(norm),
                             self.clipnorm / norm)
         return torch._foreach_mul(grads, scale)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], state: Dict[str, Any],
-             params: List[torch.Tensor]) -> None:
+             params: List[torch.Tensor],
+             norm_fn: Optional[Callable] = None) -> None:
         """One update of params in place (under MultiSteps: one
-        micro-step, applying the mean on every k-th)."""
+        micro-step, applying the mean on every k-th). norm_fn(grads): the
+        clip's global norm, where the tree is sharded over ranks."""
         if self.every_k > 1:
             n = state['mini_step']
             acc = state['acc']
@@ -215,7 +217,7 @@ class Tx:
             grads = acc
             state.update(mini_step=0,
                          acc=[torch.zeros_like(a) for a in acc])
-        grads = self._clip(grads)
+        grads = self._clip(grads, norm_fn)
         for g, opt in self.groups.items():
             if opt is None:
                 continue
@@ -277,14 +279,28 @@ class TrainState:
     def apply_gradients(self) -> None:
         """One optimizer call on the parameters' .grad, which it clears.
         Inside a data-parallel fit the gradients are first averaged over
-        the ranks (one all-reduce a dtype), so the clip's global norm is
-        the global gradient's, as in JAX."""
+        the data ranks (one all-reduce a dtype), so the clip's global norm
+        is the global gradient's, as in JAX. On a mesh with model or pipe
+        ranks (the module's mec_axes, parallel/partition.py and
+        pipeline.py), the gradients that are partial sums over an axis
+        are summed over it too, and the clip's norm counts each sharded
+        leaf once over its axes and each whole leaf once: the norm of
+        the full tree."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         dmesh = pmesh.active()
+        norm_fn = None
         if dmesh is not None:
             dmesh.all_reduce_(grads, mean=True)
-        self.tx.step(grads, self.opt_state, self.params)
+            axes = getattr(self.model, 'mec_axes', None)
+            if axes:
+                kinds = [axes.get(n, ((), ())) for n in self.names]
+                for axis in (pmesh.MODEL_AXIS, pmesh.PIPE_AXIS):
+                    part = [g for g, (_s, p) in zip(grads, kinds) if axis in p]
+                    if part:
+                        dmesh.all_reduce_(part, axis=axis)
+                norm_fn = sharded_norm(dmesh, [s for s, _p in kinds])
+        self.tx.step(grads, self.opt_state, self.params, norm_fn)
         for p in self.params:
             p.grad = None
         self.step += 1
@@ -294,6 +310,35 @@ class TrainState:
         """A CPU copy of the module's state dict."""
         return {k: v.detach().to('cpu', copy=True)
                 for k, v in self.model.state_dict().items()}
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the norm of the whole tree."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def sharded_norm(mesh: pmesh.DataMesh, sharded: List[tuple]) -> Callable:
+    """norm_fn for Tx.step: the global norm of a tree whose leaf i is
+    sharded over the axes sharded[i] (its squares summed over them) and
+    whole elsewhere (counted once)."""
+    def norm(grads: List[torch.Tensor]) -> torch.Tensor:
+        sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        m = torch.tensor([pmesh.MODEL_AXIS in s for s in sharded],
+                         device=sq.device)
+        p = torch.tensor([pmesh.PIPE_AXIS in s for s in sharded],
+                         device=sq.device)
+        zero = torch.zeros((), dtype=sq.dtype, device=sq.device)
+        # [model only, model and pipe], summed over 'model'; then
+        # [pipe only, model and pipe summed], over 'pipe'
+        by_m = torch.stack([torch.where(m & ~p, sq, zero).sum(),
+                            torch.where(m & p, sq, zero).sum()])
+        mesh.all_reduce_([by_m], axis=pmesh.MODEL_AXIS)
+        by_p = torch.stack([torch.where(~m & p, sq, zero).sum()
+                                  + by_m[1]])
+        mesh.all_reduce_([by_p], axis=pmesh.PIPE_AXIS)
+        return torch.sqrt(torch.where(~m & ~p, sq, zero).sum() + by_m[0]
+                          + by_p[0])
+    return norm
 
 
 def _injected(state: TrainState) -> List[Dict[str, Any]]:
@@ -379,14 +424,14 @@ def add_device_flag(parser) -> None:
                              "'cpu' for tests and small runs)")
 
 
-def no_mesh(**sizes: int) -> None:
-    """--mesh-model and --mesh-pipe: those axes are not ported yet
-    (ROADMAP.md queue A item 12)."""
-    for flag, n in sizes.items():
-        if n and int(n) > 1:
-            raise NotImplementedError(
-                f'--{flag.replace("_", "-")} {n}: not ported to '
-                'mec_tpu_torch yet: ROADMAP.md queue A item 12 (parallel)')
+def train_mesh(mesh_data: int, mesh_model: int = 0, mesh_pipe: int = 0
+               ) -> Optional[pmesh.DataMesh]:
+    """The BERT trainer's --mesh-data, --mesh-model and --mesh-pipe: None
+    when each is 0 or 1, else the (data, model, pipe) mesh of the
+    initialized process group, which must hold exactly their product of
+    ranks (parallel/mesh.make_mesh raises otherwise)."""
+    sizes = [max(1, int(n or 0)) for n in (mesh_data, mesh_model, mesh_pipe)]
+    return pmesh.make_mesh(*sizes) if max(sizes) > 1 else None
 
 
 def data_mesh(mesh_data: int) -> Optional[pmesh.DataMesh]:
@@ -399,9 +444,9 @@ def data_mesh(mesh_data: int) -> Optional[pmesh.DataMesh]:
 
 
 def writes(mesh: Optional[pmesh.DataMesh]) -> bool:
-    """Whether this process logs and writes files: rank 0 of the data
-    axis, or the only process."""
-    return mesh is None or mesh.rank == 0
+    """Whether this process logs and writes files: global rank 0, or the
+    only process."""
+    return mesh is None or mesh.global_rank == 0
 
 
 def barrier(mesh: Optional[pmesh.DataMesh]) -> None:
@@ -471,6 +516,15 @@ def flax_init(model: nn.Module, seed: int) -> nn.Module:
 # the fit loop
 # ----------------------------------------------------------------------
 
+def _rank_path(path: str, mesh: Optional[pmesh.DataMesh]) -> str:
+    """The checkpoint of this rank's shard: `path` itself, or with model
+    or pipe ranks holding other shards, `path`.m<m>p<p> beside it for
+    all but the first (each written by its data rank 0)."""
+    if mesh is None or (mesh.model_rank == 0 and mesh.pipe_rank == 0):
+        return path
+    return f'{path}.m{mesh.model_rank}p{mesh.pipe_rank}'
+
+
 def fit(state: TrainState,
         train_data: Dict[str, np.ndarray],
         val_data: Dict[str, np.ndarray],
@@ -517,8 +571,18 @@ def fit(state: TrainState,
     every rank takes the same early-stop, plateau and best-variables
     decisions. Only rank 0 logs and writes the checkpoint (then all
     wait); every rank restores on resume. batch_size must divide by the
-    number of ranks. (Dropout masks never match JAX's, with or without
-    a mesh: the two packages draw from different generators.)
+    number of data ranks. (Dropout masks never match JAX's, with or
+    without a mesh: the two packages draw from different generators.)
+    With model or pipe ranks (a module sharded by
+    parallel/partition.shard_bert or split by pipeline.split_stages),
+    the ranks of one data rank train the same rows and draw the same
+    dropout masks (the seed names the data rank only: the dropouts sit
+    where the hidden state is whole), the broadcast and the sums run
+    over the data axis, the gradients that are partial sums over an axis
+    are summed over it and the clip's norm is the full tree's
+    (TrainState.apply_gradients); each model-and-pipe place's data rank
+    0 writes its own shard's checkpoint (_rank_path), and the logits
+    eval_step returns are the same on all of them.
 
     Returns (state, best_vars, history); best_vars is a CPU state dict.
     """
@@ -540,11 +604,13 @@ def fit(state: TrainState,
                              f'{mesh.size} data ranks')
         mesh.broadcast_module(state.model)
         rank = mesh.rank
-        if rank:
+        if not writes(mesh):
             log_fn = lambda *_a, **_k: None  # noqa: E731
 
-    if checkpoint_path and resume and os.path.exists(checkpoint_path):
-        state, extra = ckpt.restore_train_state(checkpoint_path, state)
+    if checkpoint_path and resume and os.path.exists(
+            _rank_path(checkpoint_path, mesh)):
+        state, extra = ckpt.restore_train_state(
+            _rank_path(checkpoint_path, mesh), state)
         start_epoch = int(extra.get('epoch', -1)) + 1
         history = {k: list(v) for k, v in
                    extra.get('history', history).items()}
@@ -643,7 +709,7 @@ def fit(state: TrainState,
         # state (callback counters included) is resumable
         if checkpoint_path and rank == 0:
             ckpt.save_train_state(
-                checkpoint_path, state,
+                _rank_path(checkpoint_path, mesh), state,
                 extra={'epoch': epoch, 'history': history,
                        'best_metric': float(best_metric),
                        'best_vars': {k: v.numpy()

@@ -86,7 +86,10 @@ def extract_real_features(manifest_csv: str,
     if verbose:
         print(f'Extracting features for {len(rows)} triples...')
 
-    engine = EmotionEngine.from_models_dir(models_dir, device=device)
+    # this rank's card alone: the data ranks of a --mesh-data run each
+    # own one
+    engine = EmotionEngine.from_models_dir(models_dir, device=device,
+                                           mesh=None)
     if not (engine.speech and engine.bert and engine.image):
         raise SystemExit('real-feature extraction requires speech, bert, '
                          'and image artifacts')

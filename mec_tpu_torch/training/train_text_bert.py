@@ -28,11 +28,20 @@ then fails at the first step for want of the expert bank (ROADMAP queue
 C), so this one raises up front. --experts with --mesh-pipe exits as in
 JAX.
 
---mesh-data N trains over the N ranks of an initialized process group
-(parallel/mesh.py; python -m mec_tpu_torch starts them), each on its
-rows of every global batch. --mesh-model, --mesh-pipe (so --experts
-with --mesh-model > 1, expert parallelism) and --seq-parallel raise
-NotImplementedError naming ROADMAP item 12.
+--mesh-data D, --mesh-model M and --mesh-pipe P train over the D*M*P
+ranks of an initialized process group (parallel/mesh.py, rank = (d*M +
+m)*P + p as JAX's make_mesh lays devices out; python -m mec_tpu_torch
+starts them), as the JAX trainer does (its train_text_bert.py:112-127,
+174-180, 217-245): each data rank on its rows of every global batch;
+with M > 1 Megatron tensor parallelism of the encoder
+(parallel/partition.shard_bert), and with --experts the expert bank
+split over the model axis (expert parallelism); --seq-parallel shards
+the residual stream's sequence over it too (needs M > 1 and no pipe, and
+a padded length that divides by M); with P > 1 a GPipe pipeline of the
+encoder layers over --microbatches microbatches
+(parallel/pipeline.py, every layer recomputed in the backward pass as
+JAX's pipeline does). The artifacts are the whole model's Flax tree
+(partition.gather_bert), written by rank 0.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from mec_tpu_torch.convert import store
 from mec_tpu_torch.convert.from_jax import state_from_jax
 from mec_tpu_torch.convert.to_jax import to_jax
 from mec_tpu_torch.models.bert import BertForSequenceClassification
+from mec_tpu_torch.parallel.partition import gather_bert, shard_bert
+from mec_tpu_torch.parallel.pipeline import make_pipeline_steps, split_stages
 from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
 from mec_tpu_torch.training import common, data, metrics
 
@@ -148,14 +159,20 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
           bf16: bool = False, device='cuda'):
     """Returns (best variables as a Flax tree, history)."""
     if seq_parallel:
-        raise NotImplementedError(
-            '--seq-parallel: not ported to mec_tpu_torch yet: ROADMAP.md '
-            'queue A item 12 (sequence parallelism)')
+        # the sequence dim shards over the tensor-parallel 'model' axis
+        # (JAX train_text_bert.py:112-127)
+        if mesh_model <= 1:
+            raise SystemExit('--seq-parallel requires --mesh-model > 1 '
+                             '(the sequence dim shards over the tensor-'
+                             'parallel axis)')
+        if mesh_pipe > 1:
+            raise SystemExit('--seq-parallel with --mesh-pipe is not '
+                             'supported (the pipeline stages own the model '
+                             'axis)')
     if experts > 0 and mesh_pipe > 1:
         raise SystemExit('--experts with --mesh-pipe is not supported '
                          '(the pipeline stage apply is dense-FFN only)')
-    common.no_mesh(mesh_model=mesh_model, mesh_pipe=mesh_pipe)
-    mesh = common.data_mesh(mesh_data)
+    mesh = common.train_mesh(mesh_data, mesh_model, mesh_pipe)
     dev = common.resolve_device(device)
     log = common.logger(verbose, mesh)
     if texts is None:
@@ -185,6 +202,9 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
                 log(f'corpus max {longest} tokens; padded length {s} '
                     f'(exact w.r.t. the attention mask)')
                 break
+    if seq_parallel and ids.shape[1] % mesh_model:
+        raise ValueError(f'--seq-parallel: the padded length {ids.shape[1]} '
+                         f'does not split over --mesh-model {mesh_model}')
     train_data = {'ids': ids[tr], 'mask': mask[tr],
                   'label': np.asarray(labels)[tr]}
     val_data = {'ids': ids[va], 'mask': mask[va],
@@ -198,6 +218,9 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
     model = BertForSequenceClassification(**model_kwargs, remat=remat)
     common.flax_init(model, seed)
     init_from_pretrained(model, pretrained_dir, log)
+    if mesh is not None:
+        shard_bert(model, mesh, seq_parallel)
+        split_stages(model, mesh)
     model.to(dev)
     if remat:
         log('rematerialization: encoder layer activations recomputed in '
@@ -221,7 +244,11 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
             f'{batch_size} per optimizer update (effective batch '
             f'{batch_size * grad_accum})')
     state = common.TrainState(model, tx)
-    train_step, eval_step = make_steps(model, bf16)
+    if mesh_pipe > 1:
+        train_step, eval_step = make_pipeline_steps(model, mesh,
+                                                    microbatches, bf16)
+    else:
+        train_step, eval_step = make_steps(model, bf16)
 
     state, best_vars, history = common.fit(
         state, train_data, val_data, train_step, eval_step,
@@ -236,7 +263,8 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
     log('\n' + metrics.classification_report(val_data['label'], preds,
                                              Config.EMOTIONS))
 
-    variables = to_jax(model)
+    variables = (gather_bert(model) if hasattr(model, 'mec_mesh')
+                 else to_jax(model))
     if not common.writes(mesh):
         common.barrier(mesh)
         return variables, history
@@ -276,17 +304,19 @@ def main(argv=None):
     p.add_argument('--pretrained-dir', default='',
                    help='BERT dir for encoder init (bert_model.mecp) + '
                         'vocab')
-    not_ported = ' (more than 1 is not ported yet: ROADMAP item 12)'
     p.add_argument('--mesh-data', type=int, default=0,
-                   help='data-parallel axis size: N ranks, one a GPU')
+                   help='data-parallel axis size (the ranks are data x '
+                        'model x pipe, one a GPU)')
     p.add_argument('--mesh-model', type=int, default=0,
-                   help='tensor-parallel axis size for the encoder'
-                        + not_ported)
+                   help='tensor-parallel axis size for the encoder')
     p.add_argument('--mesh-pipe', type=int, default=0,
-                   help='pipeline-parallel stages for the encoder'
-                        + not_ported)
+                   help='pipeline-parallel stages for the encoder '
+                        '(GPipe; num_layers must divide evenly; '
+                        'composes with --mesh-model into a 3D '
+                        'DPxTPxPP mesh)')
     p.add_argument('--microbatches', type=int, default=2,
-                   help='pipeline microbatches per step (with --mesh-pipe)')
+                   help='pipeline microbatches per step (with '
+                        '--mesh-pipe; the rows pad to a multiple)')
     p.add_argument('--grad-accum', type=int, default=1,
                    help='accumulate gradients over K micro-batches '
                         'before each optimizer update (optax.MultiSteps;'
@@ -297,11 +327,13 @@ def main(argv=None):
     p.add_argument('--experts', type=int, default=0,
                    help='Mixture-of-Experts FFN: swap every encoder '
                         'layer\'s dense FFN for N top-1-routed experts '
-                        '(models/moe.py; expert parallelism over '
-                        '--mesh-model is not ported yet: ROADMAP item 12)')
+                        '(models/moe.py; with --mesh-model > 1 the '
+                        'expert bank shards over the model axis: expert '
+                        'parallelism)')
     p.add_argument('--seq-parallel', action='store_true',
-                   help='Megatron sequence parallelism (not ported yet: '
-                        'ROADMAP item 12)')
+                   help='Megatron sequence parallelism: shard the '
+                        'residual stream\'s sequence dim over the '
+                        'tensor-parallel axis (requires --mesh-model > 1)')
     p.add_argument('--bf16', action='store_true',
                    help='bfloat16 compute under torch.autocast (params '
                         'stay float32)')

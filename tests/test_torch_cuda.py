@@ -114,6 +114,61 @@ def test_mfcc_mean_kernel_on_an_offset_view(dev):
 
 
 @pytest.mark.cuda
+def test_speech_kernels_from_threads_on_every_card(dev):
+    """K1-K4 called from 8 threads at once, on tensors of every visible
+    card, with the host thread's current device left at cuda:0 and the
+    interpreter switching threads every 10 us: each wrapper launches on
+    its tensor's card and each kernel's attributes are granted per card
+    under a lock, so every result equals the one computed alone."""
+    import sys
+    import threading
+    cards = [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+    fwd = {c: speech_kernels.make_speech_dnn(speech_variables(seed=2), c)
+           for c in cards}
+
+    def run(card, B):
+        P = power_of(B, card, seed=B)
+        mag, S = af.hop_spectrograms(torch.from_numpy(_waves(B)).to(card))
+        mags, pitches = af.tuning_candidates(S)
+        x = torch.from_numpy(np.random.RandomState(B).randn(B, 56)
+                             .astype(np.float32)).to(card)
+        out = (speech_kernels.mfcc_mean(P),
+               *tuning_kernel.tuning_select(mags, af.fold_residual(pitches),
+                                            pitches),
+               rolloff_kernel.rolloff_bins(mag.reshape(-1, mag.shape[-1])),
+               fwd[card](x))
+        torch.cuda.synchronize(card)
+        return [t.cpu() for t in out]
+
+    jobs = [(cards[i % len(cards)], B) for i, B in
+            enumerate([1, 33, 8, 32, 2, 17, 4, 64])]
+    got, errors = {}, []
+
+    def worker(job):
+        torch.cuda.set_device(0)
+        try:
+            got[job] = run(*job)
+        except Exception as e:  # reported below, with the job
+            errors.append((job, repr(e)))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(j,)) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert errors == []
+    for job in jobs:
+        for a, b in zip(got[job], run(*job)):
+            assert torch.equal(a, b), job
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('B', [1, 8, 32, 33])
 def test_tuning_select_kernel(dev, B):
     """One cluster a clip (8 blocks at B <= 16, 4 at 32 and 33; the last

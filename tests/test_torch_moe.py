@@ -326,7 +326,8 @@ def test_moe_trainer_refusals(tmp_path):
                                             enumerate(VOCAB)}))
     with pytest.raises(SystemExit, match='--mesh-pipe'):
         train_text_bert.train(**kw, mesh_pipe=2)
-    with pytest.raises(NotImplementedError, match='item 12'):
+    # expert parallelism needs its group (two ranks)
+    with pytest.raises(RuntimeError, match='group of 2 ranks'):
         train_text_bert.train(**kw, mesh_model=2)
     # a dense pretrained encoder cannot initialise an MoE model
     dense = common.flax_init(BertForSequenceClassification(**TRAIN_KW), 1)

@@ -242,7 +242,5 @@ def test_cli_lists_the_train_commands_and_their_flags(capsys):
         text = capsys.readouterr().out
         for flag in want + ('--models-dir', '--device'):
             assert flag in text, (cmd, flag)
-        # the data axis is ported: its help names no unported item
-        if '--mesh-data' in want:
-            line = text[text.index('--mesh-data'):].split('--', 2)[1]
-            assert 'not ported' not in line, (cmd, line)
+        # the mesh axes are ported: the help names no unported item
+        assert 'not ported' not in text and 'item 12' not in text, cmd

@@ -158,7 +158,7 @@ class Record(common.Tx):
         super().__init__({'all': None}, every_k=every_k)
         self.seen = []
 
-    def _clip(self, grads):
+    def _clip(self, grads, norm_fn=None):
         self.seen.append([g.clone() for g in grads])
         return grads
 
@@ -273,19 +273,26 @@ def test_batchnorm_step_is_flax_not_torch():
 
 
 def test_trainers_refuse_what_is_not_ported(tmp_path):
-    """--mesh-model, --mesh-pipe and --seq-parallel name ROADMAP item
-    12; --mesh-data above 1 without a process group of that size raises
-    (never a silent run on one device); an HF BERT directory without
+    """--mesh-model, --mesh-pipe (and --seq-parallel with them) and
+    --mesh-data above 1 without a process group of that size raise
+    (never a silent run on one device); --seq-parallel without
+    --mesh-model exits; an HF BERT directory without
     bert_model.mecp names item 21; device='cuda' without a card raises
     (never a silent CPU run)."""
     texts = np.array(['a b', 'c d'] * 7, dtype=object)
     labels = (np.arange(14) % 7).astype(np.int32)
     kw = dict(csv_path=None, texts=texts, labels=labels, verbose=False,
               device='cpu')
+    # the model and pipe axes need their group; sequence parallelism
+    # needs a model axis, as in JAX (tests/test_parallel.py:172)
     for bad in ({'mesh_model': 2}, {'mesh_pipe': 2},
-                {'seq_parallel': True}):
-        with pytest.raises(NotImplementedError, match='item 12'):
+                {'seq_parallel': True, 'mesh_model': 2}):
+        with pytest.raises(RuntimeError, match='needs a torch.distributed '
+                                               'group of 2 ranks'):
             train_text_bert.train(**kw, **bad)
+    with pytest.raises(SystemExit, match='--seq-parallel requires '
+                                         '--mesh-model > 1'):
+        train_text_bert.train(**kw, seq_parallel=True)
     with pytest.raises(RuntimeError, match='needs a torch.distributed '
                                            'group of 4 ranks'):
         train_text_bert.train(**kw, mesh_data=4)

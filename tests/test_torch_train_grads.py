@@ -91,7 +91,7 @@ class Record(common.Tx):
         super().__init__({'all': None})
         self.grads = None
 
-    def step(self, grads, state, params):
+    def step(self, grads, state, params, norm_fn=None):
         self.grads = [g.detach().clone() for g in grads]
 
 

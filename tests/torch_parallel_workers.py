@@ -33,9 +33,9 @@ class RecordingTx(common.Tx):
     def __init__(self):
         super().__init__({'all': common.Adam(1e-3)})
 
-    def step(self, grads, state, params):
+    def step(self, grads, state, params, norm_fn=None):
         self.grads = [g.detach().clone() for g in grads]
-        super().step(grads, state, params)
+        super().step(grads, state, params, norm_fn)
 
 
 def _no_dropout(model):
@@ -161,3 +161,130 @@ def train_speech_rank(X, y, init, epochs, batch_size, models_dir):
                               batch_size=batch_size, mesh_data=2,
                               models_dir=models_dir, verbose=False,
                               device='cpu')[2]
+
+
+# ----------------------------------------------------------------------
+# the model and pipe axes (tests/test_torch_pipeline.py: four gloo ranks)
+# ----------------------------------------------------------------------
+
+LAYOUT_KW = dict(vocab_size=50, hidden_size=16, num_layers=4, num_heads=4,
+                 intermediate_size=32, max_position=32)
+LAYOUT_B, LAYOUT_L = 8, 8
+# (dp, tp, pp, microbatches, seq_parallel, experts): world 4 each
+LAYOUTS = [(2, 1, 2, 2, False, 0), (1, 2, 2, 2, False, 0),
+           (2, 2, 1, 0, False, 0), (1, 4, 1, 0, True, 0),
+           (2, 2, 1, 0, False, 2)]
+
+
+def layout_batch():
+    """A seeded global batch with ragged masks (row 0 full)."""
+    rng = np.random.RandomState(7)
+    B, L = LAYOUT_B, LAYOUT_L
+    lengths = np.concatenate([[L], rng.randint(2, L + 1, B - 1)])
+    mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int32)
+    return {'ids': rng.randint(5, 50, (B, L)).astype(np.int32) * mask,
+            'mask': mask, 'label': rng.randint(0, 7, B)}
+
+
+def layout_model(dtype, experts=0):
+    """The seeded tiny BERT (MoE with `experts`), dropout off."""
+    kw = dict(LAYOUT_KW, dtype=dtype)
+    if experts:
+        kw.update(num_experts=experts, moe_capacity_factor=2.0)
+    model = common.flax_init(BertForSequenceClassification(**kw), 0)
+    return _no_dropout(model.to(dtype))
+
+
+class NormTx(RecordingTx):
+    """RecordingTx that also keeps the clip's global norm."""
+
+    def step(self, grads, state, params, norm_fn=None):
+        self.norm = float((norm_fn or common.global_norm)(grads))
+        super().step(grads, state, params, norm_fn)
+
+
+def layout_step(model, batch, mesh=None, microbatches=0):
+    """One float64 training step: (loss, {name: the gradient the optimizer
+    was handed}, the clip's norm)."""
+    from mec_tpu_torch.parallel import pipeline
+    state = common.TrainState(model, NormTx())
+    model.train()
+    if mesh is not None and mesh.pipe > 1:
+        step = pipeline.make_pipeline_steps(model, mesh, microbatches)[0]
+    else:
+        step = train_text_bert.make_steps(model)[0]
+    with pmesh.data_parallel(mesh):
+        loss = step(state, common.to_device(batch, 'cpu'))
+    return (float(loss.detach()), dict(zip(state.names, state.tx.grads)),
+            state.tx.norm)
+
+
+def layout_checks():
+    """Every layout of LAYOUTS on this rank: the fp32 forward's logits of
+    this data rank's rows, and the float64 step's loss, gradients
+    gathered to the whole tree and clip norm."""
+    from mec_tpu_torch.parallel import partition, pipeline
+    out = []
+    for dp, tp, pp, M, sp, experts in LAYOUTS:
+        mesh = pmesh.make_mesh(dp, tp, pp)
+        batch = mesh.shard_rows(layout_batch())
+        model = layout_model(torch.float32, experts)
+        partition.shard_bert(model, mesh, sp)
+        pipeline.split_stages(model, mesh)
+        dev = common.to_device(batch, 'cpu')
+        with torch.no_grad():
+            logits = (pipeline.pipeline_step(model, dev, mesh, M) if pp > 1
+                      else model(dev['ids'], dev['mask'])[0])
+        model = layout_model(torch.float64, experts)
+        partition.shard_bert(model, mesh, sp)
+        pipeline.split_stages(model, mesh)
+        loss, grads, norm = layout_step(model, batch, mesh, M)
+        full = partition.gather_state(model, grads)
+        out.append({'logits': logits.numpy(), 'loss': loss, 'norm': norm,
+                    'grads': {k: v.numpy() for k, v in full.items()},
+                    'rank': (mesh.rank, mesh.model_rank, mesh.pipe_rank)})
+    return out
+
+
+TRAIN_TINY = dict(hidden_size=32, num_layers=2, num_heads=2,
+                  intermediate_size=64)
+# the BERT trainer's layouts on four ranks (the JAX package's
+# tests/test_parallel_serving.py flags); the first starts from JAX's
+# initial parameters with dropout off
+TRAIN_RUNS = [dict(mesh_data=2, mesh_model=2),
+              dict(mesh_data=2, mesh_pipe=2, microbatches=2),
+              dict(mesh_data=2, mesh_model=2, seq_parallel=True),
+              dict(mesh_data=2, mesh_model=2, experts=2)]
+
+
+def text_corpus():
+    from mec_tpu_torch.training import corpora
+    texts, labels = corpora.make_text_corpus(per_class=6)
+    return texts, labels, corpora.make_bert_tokenizer(texts)
+
+
+def train_bert_runs(root, init):
+    """train_text_bert.train for each of TRAIN_RUNS on this rank, the
+    first from the Flax tree `init` with dropout off: [(variables,
+    history)], and each run's directory under root."""
+    from mec_tpu_torch.convert.from_jax import state_dict_from_jax
+    texts, labels, tok = text_corpus()
+    flax_init = common.flax_init
+
+    def from_jax(model, seed):
+        model.load_state_dict(state_dict_from_jax(model, init))
+        return _no_dropout(model)
+
+    out = []
+    for i, flags in enumerate(TRAIN_RUNS):
+        common.flax_init = from_jax if i == 0 else flax_init
+        try:
+            out.append(train_text_bert.train(
+                csv_path=None, texts=texts, labels=labels, tokenizer=tok,
+                epochs=2, batch_size=16, max_length=16, learning_rate=5e-4,
+                model_kwargs=dict(TRAIN_TINY, vocab_size=len(tok.vocab)),
+                models_dir=f'{root}/{i}', verbose=False, device='cpu',
+                **flags))
+        finally:
+            common.flax_init = flax_init
+    return out
