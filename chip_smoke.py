@@ -20,7 +20,10 @@ K7 serving it), the MoE BERT trainer, and data-parallel training over
 torch.distributed (two gloo ranks sharing the card, one NCCL rank);
 serving data parallelism (two replicas of the models sharing the card,
 K1-K4, K6, K7 on each) and the BERT trainer's tensor, sequence, expert
-and pipeline parallelism (two gloo ranks sharing the card).
+and pipeline parallelism (two gloo ranks sharing the card); and the
+system's entry point: a reference-format models directory (.pt, HF
+BERT) converted at load and served over HTTP by the port's web app and
+its serve CLI (K1-K4, K6, K7 once a tri-modal request's dispatch).
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
@@ -163,6 +166,37 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               whole tree, against one process within 1e-10 of the
               largest gradient; train-text-bert --mesh-model 2 must
               refuse on one card, naming the visible GPU count
+  6f. entry   the host packages (find_spec of jinja2, werkzeug, h5py,
+              sklearn, joblib, safetensors); a full-width directory in the
+              reference's formats written from the seeds of phase 6
+              (ResNet50 image_model.pt and fusion_model.pt in the
+              reference's key names, HF BERT-base bert_model/ with
+              pytorch_model.bin and model.safetensors, config.json,
+              vocab.txt; the speech DNN as a Keras .h5 with a sklearn
+              scaler .pkl where h5py and sklearn are present, else its
+              .mecp and .npz, and then convert_speech_h5 must raise an
+              ImportError naming h5py); get_engine(dir) in bf16 on the
+              card converts, writes each .mecp beside its artifact
+              (leaf for leaf the seed trees), calibrates and warms up
+              (1, 8, 32); a second from_models_dir with every converter
+              replaced by one that fails reads the caches, and its
+              tri-modal rows at B=1, 8 are the first engine's bit for
+              bit; the directory on device='cpu' within TRI_BAND; both
+              load walls printed. The port's create_app on werkzeug's
+              make_server in a thread (temporary sqlite database):
+              /api/register, then over urllib the four prediction routes
+              (each equal to the engine's own result within TRI_BAND),
+              8 concurrent tri-modal requests from 8 threads, 20
+              sequential b1 tri-modal requests (first, p50 and p99 host
+              walls printed), /api/predictions one row a request, and
+              the launch counters: K1-K4, K6, K7 once a tri-modal
+              dispatch, K5 never. python -m mec_tpu_torch serve
+              --device cuda --warmup as a subprocess answers one
+              tri-modal request and must end by the SIGTERM sent. A
+              bf16 speech engine under MEC_USE_PALLAS=0 (K2 alone), and
+              MEC_PALLAS_TUNING=0 and MEC_PALLAS_ROLLOFF=0 (K2 or K3
+              off), each within SPEECH_BAND of the cpu; a fresh
+              interpreter reads a .env in its working directory
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
               in a marked torch.profiler range of the same 30 calls,
@@ -187,8 +221,9 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               kernels (name, route, source, replaces, launches and
               launches on the tri-modal paths (launches_by_path: the
               dense engines', the MoE engine's, the two-replica engine's
-              of 6e), launches_per_dispatch, serve_dp_launches_per_dispatch
-              (and moe_launches_per_dispatch), max_abs_err,
+              of 6e, the HTTP requests' of 6f), launches_per_dispatch,
+              serve_dp_launches_per_dispatch, moe_launches_per_dispatch
+              and entry_launches_per_dispatch, max_abs_err,
               ms by events, device_ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
               bound_peak 'memory', 'fp32', 'bf16_tc' or 'int8_tc',
               library_ms or null; K5's row is the 'highest' precision
@@ -1457,12 +1492,710 @@ def axes_phase(card):
     print(f'axes phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
 
 
+# ----------------------------------------------------------------------
+# phase 6f: the system's entry point — a reference-format directory
+# converted at load and served over HTTP
+# ----------------------------------------------------------------------
+ENTRY_PACKAGES = ('jinja2', 'werkzeug', 'h5py', 'sklearn', 'joblib',
+                  'safetensors')
+HTTP_REPS = 20
+
+
+def _lin(sd, pre, leaf):
+    """A torch Linear's state from a Flax Dense leaf (kernel (in, out))."""
+    sd[f'{pre}.weight'] = leaf['kernel'].T
+    sd[f'{pre}.bias'] = leaf['bias']
+
+
+def _ln(sd, pre, leaf):
+    sd[f'{pre}.weight'], sd[f'{pre}.bias'] = leaf['scale'], leaf['bias']
+
+
+def resnet_reference_state(tree):
+    """The reference ImageEmotionModel's state dict (torchvision key names,
+    base.fc.{1,4} head) of a Flax-layout ResNet50 tree."""
+    p, s = tree['params'], tree['batch_stats']
+    sd = {}
+
+    def conv(pre, leaf):
+        sd[f'{pre}.weight'] = leaf['kernel'].transpose(3, 2, 0, 1)  # OIHW
+
+    def bn(pre, pl, sl):
+        _ln(sd, pre, pl)
+        sd[f'{pre}.running_mean'], sd[f'{pre}.running_var'] = \
+            sl['mean'], sl['var']
+        sd[f'{pre}.num_batches_tracked'] = np.zeros((), np.int64)
+
+    conv('base.conv1', p['conv1'])
+    bn('base.bn1', p['bn1'], s['bn1'])
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        for b in range(n_blocks):
+            name, t = f'layer{stage + 1}_{b}', f'base.layer{stage + 1}.{b}'
+            for i in (1, 2, 3):
+                conv(f'{t}.conv{i}', p[name][f'conv{i}'])
+                bn(f'{t}.bn{i}', p[name][f'bn{i}'], s[name][f'bn{i}'])
+            if 'downsample_conv' in p[name]:
+                conv(f'{t}.downsample.0', p[name]['downsample_conv'])
+                bn(f'{t}.downsample.1', p[name]['downsample_bn'],
+                   s[name]['downsample_bn'])
+    _lin(sd, 'base.fc.1', p['fc1'])
+    _lin(sd, 'base.fc.4', p['fc2'])
+    return sd
+
+
+def fusion_reference_state(tree):
+    """The reference MultiModalFusionModel's state dict of a Flax-layout
+    fusion tree (packed nn.MultiheadAttention in-projections)."""
+    p, sd = tree['params'], {}
+
+    def proj(pre, leaf):
+        _lin(sd, f'{pre}.0', leaf['linear'])
+        _ln(sd, f'{pre}.1', leaf['norm'])
+
+    for mod in ('speech', 'text', 'image'):
+        proj(f'{mod}_proj', p[f'{mod}_proj'])
+        att = p[f'cross_attn_{mod}']['attention']
+        pre = f'cross_attn_{mod}.attention'
+        sd[f'{pre}.in_proj_weight'] = att['in_proj_weight']
+        sd[f'{pre}.in_proj_bias'] = att['in_proj_bias']
+        _lin(sd, f'{pre}.out_proj', att['out_proj'])
+        _ln(sd, f'cross_attn_{mod}.norm', p[f'cross_attn_{mod}']['norm'])
+    fus = p['attention_fusion']
+    for i in range(3):
+        proj(f'attention_fusion.projections.{i}', fus[f'proj_{i}'])
+    _lin(sd, 'attention_fusion.attention.0', fus['attn_0'])
+    _lin(sd, 'attention_fusion.attention.2', fus['attn_1'])
+    for pre, key in (('decision_weights.0', 'decision_0'),
+                     ('decision_weights.2', 'decision_1'),
+                     ('classifier.0', 'classifier_0'),
+                     ('classifier.4', 'classifier_1'),
+                     ('classifier.7', 'classifier_2')):
+        _lin(sd, pre, p[key])
+    _ln(sd, 'classifier.1', p['classifier_norm'])
+    return sd
+
+
+def bert_reference_state(tree, num_layers):
+    """A HuggingFace BertForSequenceClassification state dict (bert.*,
+    classifier) of a Flax-layout BERT tree."""
+    p, sd = tree['params'], {}
+    for name in ('word', 'position', 'token_type'):
+        sd[f'bert.embeddings.{name}_embeddings.weight'] = \
+            p[f'{name}_embeddings']['embedding']
+    _ln(sd, 'bert.embeddings.LayerNorm', p['embeddings_norm'])
+    for i in range(num_layers):
+        t, lay = f'bert.encoder.layer.{i}', p[f'layer_{i}']
+        for k in ('query', 'key', 'value'):
+            _lin(sd, f'{t}.attention.self.{k}', lay['attention_self'][k])
+        _lin(sd, f'{t}.attention.output.dense', lay['attention_output'])
+        _ln(sd, f'{t}.attention.output.LayerNorm', lay['attention_norm'])
+        _lin(sd, f'{t}.intermediate.dense', lay['intermediate'])
+        _lin(sd, f'{t}.output.dense', lay['output'])
+        _ln(sd, f'{t}.output.LayerNorm', lay['output_norm'])
+    _lin(sd, 'bert.pooler.dense', p['pooler'])
+    _lin(sd, 'classifier', p['classifier'])
+    return sd
+
+
+def write_keras_speech_h5(path, tree):
+    """speech_model.h5 in Keras's weight layout (model_weights/<layer>/
+    <layer>/<weight>:0, layer_names in model order) with h5py."""
+    import h5py
+    p, s = tree['params'], tree['batch_stats']
+    n = sum(1 for k in p if k.startswith('dense_') and k != 'dense_out')
+    layers = []
+    for i in range(n):
+        layers.append((f'dense_{i}', {'kernel': p[f'dense_{i}']['kernel'],
+                                      'bias': p[f'dense_{i}']['bias']}))
+        layers.append((f'batch_normalization_{i}', {
+            'gamma': p[f'bn_{i}']['scale'], 'beta': p[f'bn_{i}']['bias'],
+            'moving_mean': s[f'bn_{i}']['mean'],
+            'moving_variance': s[f'bn_{i}']['var']}))
+    layers.append((f'dense_{n}', {'kernel': p['dense_out']['kernel'],
+                                  'bias': p['dense_out']['bias']}))
+    with h5py.File(path, 'w') as f:
+        g = f.create_group('model_weights')
+        for lname, ws in layers:
+            for w, a in ws.items():
+                g.create_dataset(f'{lname}/{lname}/{w}:0', data=a)
+        g.attrs['layer_names'] = np.array([n.encode() for n, _ in layers])
+
+
+def same_tree(a, b):
+    """Leaf for leaf equal (keys, dtypes, shapes, values)."""
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and sorted(a) == sorted(b)
+                and all(same_tree(a[k], b[k]) for k in b))
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and bool(np.array_equal(a, b))
+
+
+def write_reference_dir(d, have):
+    """A full-width models directory in the reference's formats, from the
+    port's synthetic trees (numpy seeds): image_model.pt (ResNet50),
+    fusion_model.pt, bert_model/ (HF BERT-base: pytorch_model.bin, and
+    model.safetensors where safetensors is present, config.json,
+    vocab.txt); the speech DNN as speech_model.h5 with speech_scaler.pkl
+    where h5py and sklearn are present, else its .mecp and .npz; a
+    fitted forest .pkl where sklearn is present. Returns the trees."""
+    import torch
+
+    from mec_tpu_torch.convert import store
+    from mec_tpu_torch.serving.synthetic_artifacts import (bert_variables,
+                                                           fusion_variables,
+                                                           image_variables,
+                                                           make_vocab,
+                                                           speech_variables)
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}
+
+    trees = {'image': image_variables(seed=IMAGE_SEED)[0],
+             'fusion': fusion_variables(seed=FUSION_SEED),
+             'bert': bert_variables(seed=BERT_SEED),
+             'speech': speech_variables(seed=2)}
+    torch.save(tensors(resnet_reference_state(trees['image'])),
+               os.path.join(d, 'image_model.pt'))
+    fp = trees['fusion']['params']
+    torch.save({'model_state_dict': tensors(fusion_reference_state(
+        trees['fusion'])), 'config': {
+            **{f'{m}_dim': int(fp[f'{m}_proj']['linear']['kernel'].shape[0])
+               for m in ('speech', 'text', 'image')},
+            'num_classes': int(fp['classifier_2']['kernel'].shape[1]),
+            'hidden_dim': int(fp['speech_proj']['linear']['kernel']
+                              .shape[1])}},
+        os.path.join(d, 'fusion_model.pt'))
+    bert_dir = os.path.join(d, 'bert_model')
+    os.makedirs(bert_dir)
+    bp = trees['bert']['params']
+    vocab_rows, hidden = bp['word_embeddings']['embedding'].shape
+    layers = sum(1 for k in bp if k.startswith('layer_'))
+    sd = tensors(bert_reference_state(trees['bert'], layers))
+    torch.save(sd, os.path.join(bert_dir, 'pytorch_model.bin'))
+    if have['safetensors']:
+        from safetensors.torch import save_file
+        save_file(sd, os.path.join(bert_dir, 'model.safetensors'))
+    with open(os.path.join(bert_dir, 'config.json'), 'w') as f:
+        json.dump({'vocab_size': vocab_rows, 'hidden_size': hidden,
+                   'num_hidden_layers': layers,
+                   'num_attention_heads': hidden // 64,
+                   'intermediate_size':
+                       bp['layer_0']['intermediate']['kernel'].shape[1],
+                   'max_position_embeddings':
+                       bp['position_embeddings']['embedding'].shape[0],
+                   'type_vocab_size':
+                       bp['token_type_embeddings']['embedding'].shape[0],
+                   'num_labels': bp['classifier']['kernel'].shape[1]}, f)
+    vocab = make_vocab()
+    with open(os.path.join(bert_dir, 'vocab.txt'), 'w') as f:
+        f.write('\n'.join(sorted(vocab, key=vocab.get)) + '\n')
+    # the speech scaler fitted to seeded clips' features, as the trainer
+    # fits it (bench/dp_scaling.fit_speech_scaler says why)
+    from mec_tpu_torch.ops import audio_features as af
+    feats = af.audio_features_56(torch.from_numpy(waves(32, 97)),
+                                 'parity').numpy()
+    mean, scale = feats.mean(0), feats.std(0) + 1e-6
+    trees['scaler'] = (mean, scale)
+    if have['h5py'] and have['sklearn']:
+        import joblib
+        from sklearn.preprocessing import StandardScaler
+        write_keras_speech_h5(os.path.join(d, 'speech_model.h5'),
+                              trees['speech'])
+        scaler = StandardScaler().fit(feats)
+        scaler.mean_, scaler.scale_ = mean, scale
+        joblib.dump(scaler, os.path.join(d, 'speech_scaler.pkl'))
+    else:
+        store.save_params(os.path.join(d, 'speech_model.mecp'),
+                          trees['speech'])
+        np.savez(os.path.join(d, 'speech_scaler.npz'), mean=mean,
+                 scale=scale)
+    if have['sklearn']:
+        import joblib
+        from sklearn.ensemble import RandomForestClassifier
+        rng = np.random.RandomState(11)
+        x = rng.dirichlet(np.ones(7), (200, 3)).reshape(200, 21)
+        joblib.dump(RandomForestClassifier(n_estimators=4, max_depth=4,
+                                           random_state=0).fit(
+            x.astype(np.float32), x.reshape(200, 3, 7).sum(1).argmax(1)),
+            os.path.join(d, 'fusion_rf.pkl'))
+    return trees
+
+
+def multipart(fields, files):
+    """multipart/form-data body and content type for urllib."""
+    boundary = 'chipsmoke' + os.urandom(8).hex()
+    out = []
+    for name, value in fields.items():
+        out += [f'--{boundary}\r\nContent-Disposition: form-data; '
+                f'name="{name}"\r\n\r\n'.encode(), value.encode(), b'\r\n']
+    for name, path in files.items():
+        with open(path, 'rb') as f:
+            data = f.read()
+        out += [f'--{boundary}\r\nContent-Disposition: form-data; '
+                f'name="{name}"; filename="{os.path.basename(path)}"\r\n'
+                f'Content-Type: application/octet-stream\r\n\r\n'.encode(),
+                data, b'\r\n']
+    out.append(f'--{boundary}--\r\n'.encode())
+    return b''.join(out), f'multipart/form-data; boundary={boundary}'
+
+
+def http_call(opener, url, *, json_body=None, fields=None, files=None,
+              method=None):
+    """(status, parsed JSON) of one request through urllib."""
+    import urllib.error
+    import urllib.request
+    if json_body is not None:
+        data, ctype = json.dumps(json_body).encode(), 'application/json'
+    elif fields is not None or files is not None:
+        data, ctype = multipart(fields or {}, files or {})
+    else:
+        data, ctype = None, None
+    req = urllib.request.Request(url, data=data, method=method)
+    if ctype:
+        req.add_header('Content-Type', ctype)
+    try:
+        with opener.open(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode('utf-8', 'replace')
+
+
+def check_answer(got, what):
+    """An HTTP prediction: one of the 7 emotions, probabilities that sum
+    to 1 within 1e-5, no engine-internal keys."""
+    from mec_tpu_torch.config import Config
+    check(set(got) == {'emotion', 'confidence', 'all_probabilities'},
+          f'{what}: answer keys {sorted(got)}')
+    p = np.asarray(got['all_probabilities'])
+    check(got['emotion'] in Config.EMOTIONS and p.shape == (7,)
+          and bool(np.isfinite(p).all()) and abs(p.sum() - 1.0) <= 1e-5,
+          f'{what}: answer {got}')
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def entry_phase(card, wrappers, tri_waves, tri_pics, device='cuda'):
+    """6f. The system's entry point: a full-width reference-format
+    directory converted at load (get_engine in bf16: each .mecp written
+    beside its artifact), a second from_models_dir reading the caches
+    with every converter replaced by one that fails (tri-modal rows at
+    B=1, 8 bit for bit the first engine's; within TRI_BAND of the cpu
+    engine on the same directory), the port's create_app on werkzeug's
+    make_server in a thread: register, the four prediction routes over
+    urllib, 8 concurrent tri-modal requests, /api/predictions, launch
+    counters, 20 sequential b1 tri-modal requests timed; the serve CLI as
+    a subprocess answering one request; the kernel switches' counters
+    and a .env read by a fresh interpreter. Returns (launch counts over
+    the HTTP tri-modal requests, their tri-modal dispatches)."""
+    import http.cookiejar
+    import importlib.util
+    import urllib.request
+
+    from PIL import Image
+
+    from mec_tpu_torch.config import Config
+    from mec_tpu_torch.convert import (hf_bert, keras_h5, sklearn_rf, store,
+                                       torch_pt)
+    from mec_tpu_torch.database import Database
+    from mec_tpu_torch.ops import wav
+    from mec_tpu_torch.serving import engine as engine_module
+    from mec_tpu_torch.serving.engine import EmotionEngine, get_engine
+    t_phase = time.perf_counter()
+
+    # 1. the host packages
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ENTRY_PACKAGES}
+    print('entry: host packages (find_spec): ' + ', '.join(
+        f'{m} {"present" if v else "absent"}' for m, v in have.items()))
+    check(have['werkzeug'], 'the HTTP front door needs werkzeug')
+
+    # 2. a reference-format directory from seeds
+    tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_entry_')
+    d = os.path.join(tmp.name, 'models')
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    trees = write_reference_dir(d, have)
+    print(f'entry: reference-format directory written in '
+          f'{time.perf_counter() - t0:.2f} s: ' + ', '.join(sorted(
+              os.path.relpath(os.path.join(r, f), d)
+              for r, _d, fs in os.walk(d) for f in fs)))
+    if not have['h5py']:
+        try:
+            keras_h5.convert_speech_h5(os.path.join(d, 'speech_model.h5'))
+            fail('convert_speech_h5 ran without h5py')
+        except ImportError as e:
+            check('h5py' in str(e), f'the ImportError names no h5py: {e}')
+            print(f'entry: without h5py, convert_speech_h5 raises '
+                  f'ImportError: {e}')
+    if not have['joblib']:
+        try:
+            sklearn_rf.convert_fusion_rf(os.path.join(d, 'fusion_rf.pkl'))
+            fail('convert_fusion_rf ran without joblib')
+        except ImportError as e:
+            check('joblib' in str(e), f'the ImportError names no joblib: {e}')
+
+    # 3. convert at load, then serve from the caches
+    saved = (Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION,
+             Config.UPLOAD_FOLDER, Config.LOG_DIR)
+    Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = \
+        'attention', 'bfloat16', 'high'
+    Config.UPLOAD_FOLDER = os.path.join(tmp.name, 'uploads')
+    Config.LOG_DIR = os.path.join(tmp.name, 'logs')
+    server = app = None
+    try:
+        before = {os.path.relpath(os.path.join(r, f), d)
+                  for r, _d, fs in os.walk(d) for f in fs}
+        t0 = time.perf_counter()
+        eng = get_engine(d, reload=True, device=device)
+        load_convert = time.perf_counter() - t0
+        written = sorted({os.path.relpath(os.path.join(r, f), d)
+                          for r, _d, fs in os.walk(d) for f in fs} - before)
+        want = ['bert_model/bert_model.mecp', 'fusion_model.mecp',
+                'image_model.mecp'] + (['speech_model.mecp',
+                                        'speech_scaler.npz']
+                                       if have['h5py'] and have['sklearn']
+                                       else [])
+        check(written == sorted(want), f'conversion wrote {written}, '
+              f'want {sorted(want)}')
+        check(eng.device.type == device and eng._all_live
+              and eng._fusion_kind == 'attention'
+              and eng._image_arch == 'resnet50'
+              and eng._image_quant_mode == eng._bert_quant_mode == 'static'
+              and eng._compress, 'get_engine did not build the bf16 '
+              'int8-static tri-modal engine on the card')
+        for name, key in (('image_model.mecp', 'image'),
+                          ('fusion_model.mecp', 'fusion'),
+                          ('bert_model/bert_model.mecp', 'bert')):
+            check(same_tree(store.load_params(os.path.join(d, name))
+                            ['variables'], trees[key]),
+                  f'{name}: the converted tree is not the seed tree')
+        t0 = time.perf_counter()
+        eng.warmup((1, 8, 32))
+        warm = time.perf_counter() - t0
+        refuse_calls = []
+
+        def refuse(*_a, **_k):
+            refuse_calls.append(1)
+            raise RuntimeError('a converter ran on a cached directory')
+
+        converters = [(mod, name) for mod, names in (
+            (keras_h5, ('convert_speech_h5', 'load_sklearn_scaler',
+                        'convert_lstm_text_h5')),
+            (torch_pt, ('convert_image_pt', 'convert_fusion_pt',
+                        'fusion_config_from_pt')),
+            (hf_bert, ('convert_bert_dir',)),
+            (sklearn_rf, ('convert_fusion_rf',))) for name in names]
+        real = {(m, n): getattr(m, n) for m, n in converters}
+        for m, n in converters:
+            setattr(m, n, refuse)
+        try:
+            t0 = time.perf_counter()
+            cached = EmotionEngine.from_models_dir(d, device=device)
+            load_cached = time.perf_counter() - t0
+        finally:
+            for (m, n), fn in real.items():
+                setattr(m, n, fn)
+        check(not refuse_calls and cached._image_scales_cached
+              and cached._bert_scales_cached, 'the second load converted '
+              'or recalibrated')
+        print(f'entry: load wall {load_convert:.2f} s converting (.pt, HF '
+              f'BERT{", .h5, .pkl" if have["h5py"] else ""}) and '
+              f'calibrating, {load_cached:.2f} s from the caches; warmup '
+              f'(1, 8, 32) {warm:.2f} s; {card}')
+        texts8 = TEXTS[:8]
+        for B in (1, 8):
+            a = eng._run_trimodal(tri_waves[:B], texts8[:B], tri_pics[:B])
+            b = cached._run_trimodal(tri_waves[:B], texts8[:B], tri_pics[:B])
+            check(a.shape == (B, 34) and np.array_equal(a, b),
+                  f'B={B}: the cached engine\'s rows differ from the '
+                  f'converting engine\'s')
+        del cached
+        cpu = EmotionEngine.from_models_dir(d, device='cpu')
+        check(cpu._image_scales_cached and cpu._bert_scales_cached,
+              'the cpu engine did not take the card\'s scales')
+        k_rows = eng._run_trimodal(tri_waves[:8], texts8, tri_pics[:8])
+        c_rows = cpu._run_trimodal(tri_waves[:8], texts8, tri_pics[:8])
+        e_cpu = float(np.abs(k_rows - c_rows).max())
+        check(e_cpu <= TRI_BAND, f'converted directory: card against cpu '
+              f'{e_cpu} > {TRI_BAND}')
+        for row_k, row_c in zip(k_rows, c_rows):
+            for lo in (0, 7, 14, 21):
+                top2 = np.sort(row_c[lo:lo + 7])[-2:]
+                check(top2[1] - top2[0] <= TRI_BAND
+                      or np.argmax(row_k[lo:lo + 7])
+                      == np.argmax(row_c[lo:lo + 7]),
+                      'converted directory: a decision differs from cpu')
+        del cpu
+        print(f'entry: cached engine bit for bit the converting one at '
+              f'B=1, 8; card against cpu (34 packed values, B=8) '
+              f'{e_cpu:.3e} <= {TRI_BAND}')
+
+        # 4. HTTP in this process (werkzeug's per-request log lines off)
+        import logging
+
+        from werkzeug.serving import make_server
+        logging.getLogger('werkzeug').setLevel(logging.WARNING)
+
+        from mec_tpu_torch.webapp.app import create_app
+        files = []
+        for i in range(8):
+            wp = os.path.join(tmp.name, f'req{i}.wav')
+            pp = os.path.join(tmp.name, f'req{i}.png')
+            wav.write_wav(wp, tri_waves[i + 1], 22050)
+            Image.fromarray(tri_pics[i + 1]).save(pp)
+            files.append((wp, TEXTS[i], pp))
+        app = create_app(db=Database(os.path.join(tmp.name, 'web.db')),
+                         models_dir=d, device=device)
+        check(app.engine is eng, 'create_app did not take get_engine\'s '
+              'engine')
+        server = make_server('127.0.0.1', 0, app, threaded=True)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f'http://127.0.0.1:{server.server_port}'
+        opener = urllib.request.build_opener(
+            urllib.request.HTTPCookieProcessor(http.cookiejar.CookieJar()))
+        status, body = http_call(opener, base + '/api/register', json_body={
+            'username': 'chipsmoke', 'email': 'chip@example.com',
+            'password': 'password123'})
+        check(status == 201, f'/api/register: {status} {body}')
+        for w in wrappers.values():
+            w.launches = 0
+        wp, text, pp = files[0]
+        t0 = time.perf_counter()
+        status, tri_first = http_call(opener, base + '/api/predict/multimodal',
+                                 fields={'text': text},
+                                 files={'audio': wp, 'image': pp})
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(status == 200, f'/api/predict/multimodal: {status}')
+        answers = {
+            'speech': http_call(opener, base + '/api/predict/speech',
+                           files={'audio': wp}),
+            'text': http_call(opener, base + '/api/predict/text',
+                         json_body={'text': text}),
+            'image': http_call(opener, base + '/api/predict/image',
+                          files={'image': pp})}
+        counts = {n: w.launches for n, w in wrappers.items()}
+        stats = app.batcher.stats()
+        want = {'speech': eng.predict_speech_paths([wp])[0],
+                'text': eng.predict_texts([text])[0],
+                'image': eng.predict_image_paths([pp])[0]}
+        ref = eng.predict_multimodal(audio_path=wp, text=text, image_path=pp)
+        for mod, (status, body) in answers.items():
+            check(status == 200, f'/api/predict/{mod}: {status} {body}')
+            check_answer(body, f'/api/predict/{mod}')
+            check_results([body], [want[mod]], TRI_BAND,
+                          f'HTTP {mod} against the engine')
+        check(set(tri_first) == {'speech', 'text', 'image', 'fusion'},
+              f'tri-modal answer {sorted(tri_first)}')
+        for mod in ('speech', 'text', 'image'):
+            check_answer(tri_first[mod], f'tri-modal {mod}')
+        for mod in tri_first:
+            check_results([tri_first[mod]], [ref[mod]], TRI_BAND,
+                          f'HTTP tri-modal {mod} against the engine')
+        s_n = stats['speech']['batches']
+        i_n = stats['image']['batches']
+        m_n = stats['multimodal']['batches']
+        check((s_n, i_n, m_n) == (1, 1, 1), f'batches {stats}')
+        for n, c in counts.items():
+            want_n = (0 if n == 'dft_spectrograms'
+                      else m_n + (s_n if n in ('mfcc_mean', 'tuning_select',
+                                               'rolloff_bins', 'speech_dnn')
+                                  else i_n))
+            check(c == want_n, f'{n} launched {c} times over the four '
+                  f'routes (want {want_n})')
+        # 8 concurrent tri-modal requests from 8 threads, then 20 at b1
+        for w in wrappers.values():
+            w.launches = 0
+        m_before = app.batcher.stats()['multimodal']['batches']
+        served = [None] * 8
+
+        def one(i):
+            wp, text, pp = files[i]
+            served[i] = http_call(opener, base + '/api/predict/multimodal',
+                             fields={'text': text},
+                             files={'audio': wp, 'image': pp})
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        check(all(s is not None and s[0] == 200 for s in served),
+              f'concurrent tri-modal requests: {[s and s[0] for s in served]}')
+        coalesced = app.batcher.stats()['multimodal']['batches'] - m_before
+        walls = []
+        for i in range(HTTP_REPS):
+            wp, text, pp = files[i % 8]
+            t0 = time.perf_counter()
+            status, body = http_call(opener, base + '/api/predict/multimodal',
+                                fields={'text': text},
+                                files={'audio': wp, 'image': pp})
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f'sequential tri-modal request: {status}')
+        dispatches = app.batcher.stats()['multimodal']['batches'] - m_before
+        http_counts = {n: w.launches for n, w in wrappers.items()}
+        for n, c in http_counts.items():
+            want_n = 0 if n == 'dft_spectrograms' else dispatches
+            check(c == want_n, f'{n} launched {c} times in {dispatches} '
+                  f'HTTP tri-modal dispatches (want {want_n})')
+        refs = eng.predict_multimodal_batch(
+            [{'audio_path': wp, 'text': text, 'image_path': pp}
+             for wp, text, pp in files])
+        for (status, body), r in zip(served, refs):
+            for mod in body:
+                check_results([body[mod]], [r[mod]], TRI_BAND,
+                              f'HTTP concurrent tri-modal {mod}')
+        status, rows = http_call(opener, base + '/api/predictions')
+        n_req = 4 + 8 + HTTP_REPS
+        check(status == 200 and len(rows) == n_req,
+              f'/api/predictions: {status}, {len(rows)} rows for {n_req} '
+              f'requests')
+        walls.sort()
+        print(f'entry: HTTP (werkzeug make_server, urllib): register, the '
+              f'four prediction routes within {TRI_BAND} of the engine, '
+              f'8 concurrent tri-modal requests in {coalesced} batch(es), '
+              f'{len(rows)} rows in /api/predictions; launches '
+              f'{http_counts} in {dispatches} tri-modal dispatches (K5 '
+              f'never)')
+        print(f'time HTTP /api/predict/multimodal B=1: first request '
+              f'{first_ms:.2f} ms; {HTTP_REPS} sequential requests p50 '
+              f'{statistics.median(walls):.2f} ms, p99 '
+              f'{walls[int(np.ceil(0.99 * len(walls))) - 1]:.2f} ms, min '
+              f'{walls[0]:.2f} ms (host wall around urllib: multipart '
+              f'upload, save, decode, batcher, device step, JSON, sqlite '
+              f'record); {card}')
+    finally:
+        if server is not None:
+            server.shutdown()
+        if app is not None and app._batcher is not None:
+            app._batcher.stop()
+        (Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION,
+         Config.UPLOAD_FOLDER, Config.LOG_DIR) = saved
+        engine_module._engine = None
+
+    # 5. the CLI once, as a subprocess
+    port = free_port()
+    env = dict(os.environ, MEC_COMPUTE_DTYPE='bfloat16', MEC_SKIP_DOTENV='1',
+               DATABASE_URL='sqlite:///' + os.path.join(tmp.name, 'cli.db'),
+               UPLOAD_FOLDER=os.path.join(tmp.name, 'cli_uploads'),
+               MEC_LOG_DIR=os.path.join(tmp.name, 'cli_logs'),
+               PYTHONPATH=HERE)
+    cli_log = os.path.join(tmp.name, 'serve_cli.log')
+    t0 = time.perf_counter()
+    with open(cli_log, 'w') as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'mec_tpu_torch', 'serve', '--models-dir',
+             d, '--host', '127.0.0.1', '--port', str(port), '--device',
+             device, '--warmup'], cwd=HERE, env=env, stdout=log_f,
+            stderr=subprocess.STDOUT)
+    try:
+        import socket
+        up = False
+        while time.perf_counter() - t0 < 300 and proc.poll() is None:
+            with socket.socket() as s:
+                if s.connect_ex(('127.0.0.1', port)) == 0:
+                    up = True
+                    break
+            time.sleep(0.5)
+        check(up, f'the serve CLI did not listen (exit {proc.poll()})')
+        up_s = time.perf_counter() - t0
+        wp, text, pp = files[0]
+        status, body = http_call(urllib.request.build_opener(),
+                            f'http://127.0.0.1:{port}/api/predict/multimodal',
+                            fields={'text': text},
+                            files={'audio': wp, 'image': pp})
+        check(status == 200 and set(body) == {'speech', 'text', 'image',
+                                              'fusion'},
+              f'the serve CLI answered {status} {body}')
+        for mod in ('speech', 'text', 'image'):
+            check_answer(body[mod], f'CLI tri-modal {mod}')
+        check(proc.poll() is None, f'the serve CLI exited {proc.poll()}')
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    with open(cli_log) as f:
+        out = f.read()
+    check(proc.returncode == -15, f'the serve CLI ended with '
+          f'{proc.returncode} (not by the terminate):\n{out[-3000:]}')
+    print(f'entry: python -m mec_tpu_torch serve --device {device} '
+          f'--warmup '
+          f'listened after {up_s:.1f} s, answered one tri-modal request, '
+          f'ended by SIGTERM')
+
+    # 6. the kernel switches and a .env
+    clips = waves(5, seed=31)
+    for flag, off in (('USE_PALLAS', ('mfcc_mean', 'rolloff_bins',
+                                      'speech_dnn', 'dft_spectrograms')),
+                      ('PALLAS_TUNING', ('tuning_select',)),
+                      ('PALLAS_ROLLOFF', ('rolloff_bins',))):
+        old = getattr(Config, flag)
+        setattr(Config, flag, False)
+        try:
+            k_eng = EmotionEngine(trees['speech'], trees['scaler'],
+                                  compute_dtype='bfloat16', device=device)
+            c_eng = EmotionEngine(trees['speech'], trees['scaler'],
+                                  compute_dtype='bfloat16', device='cpu')
+            for w in wrappers.values():
+                w.launches = 0
+            got = k_eng.predict_speech_waves(clips)
+            counts = {n: w.launches for n, w in wrappers.items()}
+            ref = c_eng.predict_speech_waves(clips)
+        finally:
+            setattr(Config, flag, old)
+        for n, c in counts.items():
+            want_n = 0 if n in off or n in ('dft_spectrograms',
+                                            'max_pool_3x3s2', 'layer1') else 1
+            check(c == want_n, f'MEC_{flag}=0: {n} launched {c} times in '
+                  f'one speech dispatch (want {want_n})')
+        worst = check_results(got, ref, SPEECH_BAND, f'MEC_{flag}=0 speech')
+        print(f'entry: MEC_{flag}=0 bf16 speech engine: launches {counts} '
+              f'in one dispatch; against device=cpu {worst:.3e} <= '
+              f'{SPEECH_BAND}')
+    env_dir = os.path.join(tmp.name, 'dotenv')
+    os.makedirs(env_dir)
+    with open(os.path.join(env_dir, '.env'), 'w') as f:
+        f.write('MEC_COMPUTE_DTYPE=bfloat16\nexport MEC_USE_PALLAS=0\n')
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('MEC_COMPUTE_DTYPE', 'MEC_USE_PALLAS',
+                        'MEC_SKIP_DOTENV')}
+    env['PYTHONPATH'] = HERE
+    r = subprocess.run([sys.executable, '-c', 'import mec_tpu_torch.config '
+                        'as c; print(c.Config.COMPUTE_DTYPE, '
+                        'c.Config.USE_PALLAS)'], cwd=env_dir, env=env,
+                       capture_output=True, text=True, timeout=120)
+    check(r.returncode == 0 and r.stdout.split() == ['bfloat16', 'False'],
+          f'.env not loaded: {r.stdout} {r.stderr[-2000:]}')
+    print('entry: a fresh interpreter in a directory with a .env reads '
+          'MEC_COMPUTE_DTYPE=bfloat16 and MEC_USE_PALLAS=0 from it')
+    tmp.cleanup()
+    print(f'entry phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
+    return http_counts, dispatches
+
+
 def main():
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, 'mec_tpu_torch')):
         fail('mec_tpu_torch/ is not beside chip_smoke.py: run it from a '
              'checkout of the repository')
     sys.path.insert(0, HERE)
     import torch
+
+    # the trainers' model_metrics rows (training/common.record_metrics) go
+    # to a database of this run, not to the checkout's default file
+    run_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_db_')
+    os.environ.setdefault('DATABASE_URL', 'sqlite:///' + os.path.join(
+        run_tmp.name, 'metrics.db'))
 
     # ---------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
@@ -2262,6 +2995,10 @@ def main():
     dp_serve_launches, dp_serve_dispatches = serve_dp_phase(card, wrappers)
     axes_phase(card)
 
+    # ---------------------------------------------------------- 6f entry
+    entry_launches, entry_dispatches = entry_phase(card, wrappers, tri_waves,
+                                                   tri_pics)
+
     # ----------------------------------------------------------- 7 times
     # the models phase first: the MobileNetV2 image step, the rf
     # tri-modal step, the forest walk and MobileNetV2's depthwise conv
@@ -2530,12 +3267,15 @@ def main():
         e = {'name': name, 'route': 'cuda', 'source': sources[name][0],
              'replaces': sources[name][1],
              'launches': (tri_launches[name] + moe_launches[name]
-                          + dp_serve_launches[name]),
+                          + dp_serve_launches[name] + entry_launches[name]),
              'launches_by_path': {'trimodal': tri_launches[name],
                                   'moe_trimodal': moe_launches[name],
-                                  'serve_dp': dp_serve_launches[name]},
+                                  'serve_dp': dp_serve_launches[name],
+                                  'entry_http': entry_launches[name]},
              'serve_dp_launches_per_dispatch': dp_serve_launches[name]
              / dp_serve_dispatches,
+             'entry_launches_per_dispatch': entry_launches[name]
+             / entry_dispatches,
              'launches_per_dispatch': per_dispatch[name],
              'moe_launches_per_dispatch': moe_launches[name]
              / moe_dispatches,
@@ -2553,6 +3293,8 @@ def main():
                      bf16_library_ms=lib_ms)
         return e
 
+    print(f'chip_smoke total wall: {time.perf_counter() - t_start:.1f} s; '
+          f'{card}')
     print(card)
     print(json.dumps({'kernels': [entry(name) for name in wrappers]}))
     print(json.dumps({'ok': True, 'device': {

@@ -3,12 +3,13 @@
 The JAX package `mec_tpu` stays beside this one as the reference; every
 module here mirrors the path of its `mec_tpu` counterpart and is held
 against it by the tests in tests/test_torch_*.py. This package imports
-torch and never jax: the machine that runs it on the card has no jax,
-flax, msgpack or werkzeug, so the numpy-only host modules it needs
-(config, filters, wav, the batcher, fold, quant, image preprocessing,
-text cleaning, the WordPiece and Keras tokenizers, the training
-metrics, loaders and corpora) are small copies pinned to their
-originals by tests.
+torch and never jax, nor any module of mec_tpu (importing one imports
+jax, and the machine that runs the port on the card has no flax), so
+the host modules it needs (config with its .env loader, filters, wav,
+the batcher, fold, quant, image preprocessing, text cleaning, the
+WordPiece and Keras tokenizers, the training metrics, loaders and
+corpora, the checkpoint converters, the web app, the database and the
+security helpers) are copies pinned to their originals by tests.
 
 What is ported so far:
 
@@ -39,7 +40,11 @@ What is ported so far:
 * the mixture-of-experts BERT (models/moe.py), served from a models
   directory and trained with --experts;
 * data-parallel training over torch.distributed (--mesh-data N: one
-  process a device, parallel/).
+  process a device, parallel/), and the BERT trainer's tensor,
+  sequence, expert and pipeline axes;
+* the reference's own artifacts (Keras .h5, torch .pt, sklearn .pkl,
+  HF BERT directories) converted at load or by `python -m mec_tpu_torch
+  convert`, and the web service: `python -m mec_tpu_torch serve`.
 
 All seven TPU Pallas kernels are rewritten as CUDA C++ kernels for
 sm_90a (csrc/, built at first use by ops/_build.py): K1 mfcc_mean, K2
@@ -47,7 +52,7 @@ tuning_select, K3 rolloff_bins, K4 speech_dnn, K5 dft_power (the framed
 DFT), K6 the stem max-pool, K7 the int8 layer1.
 
 Package layout:
-  config.py   the subset of mec_tpu.config the slices read
+  config.py   mec_tpu.config's keys that the port reads, load_dotenv
   ops/        frontend (audio_features), kernel wrappers + plain twins,
               numpy filter tables, WAV decode, BN fold, int8 quantization,
               the nvcc build
@@ -60,7 +65,9 @@ Package layout:
   image/      image decode and the ImageNet constants
   text/       text cleaning, the WordPiece and Keras tokenizers
   convert/    the .mecp reader and writer, the HF config.json widths,
-              JAX (Flax numpy tree) <-> port parameters
+              JAX (Flax numpy tree) <-> port parameters, the reference
+              checkpoint converters (Keras .h5, torch .pt, HF BERT,
+              sklearn forest) and convert_all
   training/   the fit loop, optimizers, checkpoints, loaders, synthetic
               corpora and the six trainers
   parallel/   the data axis: process-group init, DataMesh, the rank
@@ -68,8 +75,13 @@ Package layout:
   serving/    wire codecs, engine (and get_engine), micro-batcher,
               synthetic parameters and models directories
   inference/  the reference-API facades over get_engine
-  utils/      StageTimer
-  __main__    python -m mec_tpu_torch: the train commands
+  webapp/     the WSGI app (werkzeug; jinja2 for the HTML pages), its
+              sessions, rate limiter and serve CLI
+  database/   sqlite3 (or PyMySQL) users, predictions, statistics and
+              model metrics
+  utils/      StageTimer, rotating-file logging, input validation
+  __main__    python -m mec_tpu_torch: the train commands, serve,
+              convert
 """
 
 import torch

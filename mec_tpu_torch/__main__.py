@@ -1,8 +1,9 @@
 """Command-line front door: ``python -m mec_tpu_torch <command> [args...]``.
 
 The port of mec_tpu/__main__.py's dispatcher, with its six train
-commands; each trainer module has main(argv) taking the JAX trainer's
-flags plus --device (default cuda). Dispatch is lazy: only the selected
+commands, serve and convert; each trainer module has main(argv) taking
+the JAX trainer's flags plus --device (default cuda), as does serve
+(webapp/serve.py). Dispatch is lazy: only the selected
 command's module is imported. A train command with --mesh-data N > 1
 (train-text-bert: --mesh-data D, --mesh-model M, --mesh-pipe P, any
 above 1) runs in N = D*M*P ranks, one process a device
@@ -37,13 +38,14 @@ _COMMANDS = {
                      '--manifest real triples)'),
     'train-fusion-rf': ('mec_tpu_torch.training.train_fusion_rf',
                         'train the random-forest fusion variant (sklearn)'),
+    'serve': ('mec_tpu_torch.webapp.serve',
+              'run the web service (werkzeug; --device cuda by default)'),
+    'convert': ('mec_tpu_torch.convert.__main__',
+                'convert reference checkpoints (.h5/.pt/.pkl/HF) to .mecp'),
 }
 
 # the JAX package's commands that are not ported, with their queue item
 _NOT_PORTED = {
-    'serve': 'A14 (the serve CLI: the web app needs werkzeug and imports '
-             'jax)',
-    'convert': 'A21 (the checkpoint converters)',
     'download': 'A13 (no device work; run python -m mec_tpu download)',
     'organize': 'A13 (no device work; run python -m mec_tpu organize)',
 }

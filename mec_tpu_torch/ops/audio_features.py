@@ -22,6 +22,8 @@ kernels go through their wrappers: dft_spectrograms (K5, framed
 branch), mfcc_mean (K1), tuning_select (K2, every branch: the reference
 takes its tuning kernel on the device whatever the branch),
 rolloff_bins (K3); on a CPU tensor each runs its plain version.
+MEC_PALLAS_TUNING=0 and MEC_PALLAS_ROLLOFF=0 (Config) turn K2 and K3 off
+on the card as well, as they turn off the JAX package's kernels.
 
 `spectral_features_4` is the speech heuristic's input: the rFFT STFT
 and the cumsum rolloff; it is a fallback, not the serving path.
@@ -40,7 +42,8 @@ from mec_tpu_torch.ops import filters
 from mec_tpu_torch.ops.dft_kernel import PRECISIONS, dft_spectrograms
 from mec_tpu_torch.ops.rolloff_kernel import rolloff_bins
 from mec_tpu_torch.ops.speech_kernels import mfcc_mean
-from mec_tpu_torch.ops.tuning_kernel import tuning_select
+from mec_tpu_torch.ops.tuning_kernel import (tuning_select,
+                                              tuning_select_plain)
 
 SR = Config.SAMPLE_RATE          # 22050
 N_SAMPLES = Config.AUDIO_SAMPLES  # 66150
@@ -282,7 +285,10 @@ def estimate_tuning_from_power(P: torch.Tensor) -> torch.Tensor:
     """Per-clip tuning deviation in fractional chroma bins, (B,)
     (librosa.estimate_tuning at resolution 0.01)."""
     mags, pitches = tuning_candidates(P)
-    best, has = tuning_select(mags, fold_residual(pitches), pitches)
+    # MEC_PALLAS_TUNING=0 runs the plain selection on the card too
+    # (audio_features.py:423-425 reads the same flag)
+    select = tuning_select if Config.PALLAS_TUNING else tuning_select_plain
+    best, has = select(mags, fold_residual(pitches), pitches)
     nearest = _consts(P.device)['nearest']
     return torch.where(has, nearest[best.long()], 0.0)
 
@@ -363,8 +369,9 @@ def spectral_rolloff_mean(mag: torch.Tensor, roll_percent: float = 0.85,
     map there: (SR/2)/(F-1) = 11025 * 2**-10 and k * 11025 < 2**24 are
     both f32-representable, so k * step == fft_frequencies[k] bitwise.
     The two sum in different orders, so a bin can differ on a near-tie:
-    the parity graph never takes the kernel."""
-    if use_kernel:
+    the parity graph never takes the kernel, nor MEC_PALLAS_ROLLOFF=0
+    (audio_features.py:618)."""
+    if use_kernel and Config.PALLAS_ROLLOFF:
         B, T, F = mag.shape
         bins = rolloff_bins(mag.reshape(B * T, F), roll_percent).reshape(B, T)
         step = np.float32(SR / 2.0 / (F - 1))

@@ -66,25 +66,34 @@ compute dtype -> result dicts), or the keyword map without one, as in
 JAX.
 
 EmotionEngine.from_models_dir (and get_engine, the process-wide
-singleton) reads a models directory of .mecp artifacts as the JAX
-engine's _load_all does, with convert/store.py in place of flax: the
-speech DNN and its .npz scaler, bert_model/ (bert_model.mecp,
-config.json, vocab.txt), the Bi-LSTM (text_model.mecp with its
-text_model_tokenizer.json or .pkl), the image model (ResNet50 or
-MobileNetV2, its meta's img_size and int8_scales), the fusion net, and
-in rf mode fusion_rf.mecp. Static int8 scales calibrated at load are written back
-into the artifact's meta under the JAX engine's keys, so either engine
-built next skips the calibration. Deviations from the JAX loader:
+singleton) reads a models directory as the JAX engine's _load_all does,
+with convert/store.py in place of flax: the speech DNN and its scaler,
+bert_model/ (bert_model.mecp, config.json, vocab.txt), the Bi-LSTM
+(text_model.mecp with its text_model_tokenizer.json or .pkl), the image
+model (ResNet50 or MobileNetV2, its meta's img_size and int8_scales),
+the fusion net, and in rf mode the forest. Each artifact is its .mecp
+when there is one; else the reference-format artifact beside it (.h5,
+.pt, .pkl, an HF BERT directory) is converted (convert/, the JAX
+converters' copies) and cached as that .mecp, a scaler .pkl as its .npz,
+for the next load. Static int8 scales calibrated at load are written
+back into the artifact's meta under the JAX engine's keys, so either
+engine built next skips the calibration. Deviations from the JAX loader:
   * a missing artifact serves its fallback, as in JAX;
-  * a corrupt .mecp or an invalid forest raises, where JAX logs and
+  * a corrupt .mecp, an invalid forest or a failed conversion (h5py or
+    joblib missing, a truncated file) raises, where JAX logs and
     degrades;
-  * a reference-format artifact with no .mecp beside it (.h5, .pt, an
-    HF BERT dir without bert_model.mecp, a scaler .pkl without its .npz)
-    raises NotImplementedError naming ROADMAP queue A item 21: the port
-    has no converters, and serving the fallback would answer what the
-    JAX engine does not;
+  * the scaler .pkl is cached as its .npz (JAX reads the .pkl at every
+    load);
   * a read-only models directory keeps the new scales in memory only
     (logged); any other failure to write them raises.
+
+The kernel switches (Config.USE_PALLAS, PALLAS_TUNING, PALLAS_ROLLOFF)
+have the JAX package's scope: USE_PALLAS=0 puts the bf16 speech leg on
+the parity graph (K1, K3, K4, K5 off; the compressed wire stays), the
+other two turn off K2 and K3 alone (ops/audio_features.py); the engine
+logs which kernels a flag turned off. MEC_HOST_AUDIO_FEATURES has no
+host featurizer behind it yet (ROADMAP A15): on in bf16 raises, 'auto'
+is off.
 """
 
 from __future__ import annotations
@@ -200,11 +209,6 @@ def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([x, pad], axis=0)
 
 
-def _not_ported(item: str):
-    raise NotImplementedError(
-        f'not ported to mec_tpu_torch yet: ROADMAP.md queue A item {item}')
-
-
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 # the image architectures, by the JAX engine's scale-cache name
@@ -212,20 +216,36 @@ _IMAGE_MODELS = {'resnet50': ImageEmotionModel,
                  'mobilenet_v2': MobileNetV2EmotionModel}
 
 
-def _read_native(ref_path: str) -> Optional[Dict[str, Any]]:
-    """The .mecp beside a reference-format artifact path, loaded
-    ({'variables', 'meta'}); None when neither file exists. A corrupt
-    .mecp raises; a reference-format file alone raises
-    NotImplementedError (queue A item 21: the port has no converters)."""
+def _load_native_or(ref_path: str, convert_fn) -> Optional[Dict[str, Any]]:
+    """The .mecp beside a reference-format artifact, loaded ({'variables',
+    'meta'}); else the artifact converted by convert_fn (a tree, or a
+    (tree, meta) pair) and cached as that .mecp, passing over an OSError
+    on write (a read-only models directory), as the JAX engine's
+    _load_native_or (engine.py:229-251) does; None when neither file
+    exists. A corrupt .mecp and a failed conversion raise (C5)."""
     nat = store.native_path(ref_path)
     if os.path.exists(nat):
         loaded = store.load_params(nat)
         loaded['meta'] = loaded.get('meta') or {}
         return loaded
-    if os.path.exists(ref_path):
-        _not_ported(f'21 (the checkpoint converters: {ref_path} has no '
-                    f'.mecp beside it)')
-    return None
+    if not os.path.exists(ref_path):
+        return None
+    converted, meta = convert_fn(ref_path), {}
+    if isinstance(converted, tuple):
+        converted, meta = converted
+    _save_cache(ref_path, nat, lambda: store.save_params(nat, converted,
+                                                         meta=meta))
+    return {'variables': converted, 'meta': meta}
+
+
+def _save_cache(ref_path: str, cache: str, write) -> None:
+    """write() the cache of a converted artifact; on a read-only models
+    directory (OSError) the conversion serves uncached, as in JAX."""
+    try:
+        write()
+    except OSError as e:
+        log.warning('converted %s; the cache %s not written: %s', ref_path,
+                    cache, e)
 
 
 def make_parity_speech_dnn(variables: Dict, device):
@@ -375,9 +395,23 @@ class EmotionEngine:
         # trace time: Config.DFT_PRECISION in bf16 serving mode; fp32
         # parity mode runs the reference's parity graph (rFFT STFT, cumsum
         # rolloff) whatever it says
-        self._dft_precision = (Config.DFT_PRECISION
-                               if self.compute_dtype == torch.bfloat16
+        # (MEC_USE_PALLAS=0 puts bf16 on the parity graph too, as the
+        # JAX engine's use_pallas=False does)
+        bf16 = self.compute_dtype == torch.bfloat16
+        self._speech_kernels = bf16 and Config.USE_PALLAS
+        self._dft_precision = (Config.DFT_PRECISION if self._speech_kernels
                                else 'parity')
+        off = ((['K1 mfcc_mean', 'K3 rolloff_bins', 'K4 speech_dnn',
+                 'K5 dft_spectrograms'] if bf16 and not Config.USE_PALLAS
+                else [])
+               + ([] if Config.PALLAS_TUNING else ['K2 tuning_select'])
+               + (['K3 rolloff_bins'] if self._speech_kernels
+                  and not Config.PALLAS_ROLLOFF else []))
+        if off:
+            log.warning('kernels turned off by MEC_USE_PALLAS, '
+                        'MEC_PALLAS_TUNING or MEC_PALLAS_ROLLOFF: %s',
+                        ', '.join(off))
+        self._check_host_audio()
         if self._dft_precision not in ('high', 'parity') + PRECISIONS:
             raise ValueError(f'MEC_DFT_PRECISION {self._dft_precision!r}: '
                              'expected high, highest or bf16')
@@ -400,10 +434,8 @@ class EmotionEngine:
             mean, scale = (torch.from_numpy(np.asarray(a, np.float32)
                                             .reshape(N_FEATURES))
                            .to(self.device) for a in scaler)
-            make_dnn = (make_speech_dnn
-                        if self.compute_dtype == torch.bfloat16
-                        else make_parity_speech_dnn)
-            self.speech = {'dnn': make_dnn(speech_variables, self.device),
+            self.speech = {'dnn': self._make_dnn(speech_variables,
+                                                 self.device),
                            'scaler': (mean, scale),
                            'variables': speech_variables}
         self._image_size = tuple(Config.IMAGE_SIZE)
@@ -462,6 +494,33 @@ class EmotionEngine:
         self.replicas: List['EmotionEngine'] = [self] + [
             self._replica(d) for d in devices[1:]]
 
+    def _make_dnn(self, variables: Dict, device):
+        """The speech DNN of the mode: the fused BN-folded kernel (K4)
+        in bf16 with the kernels on, else the plain live-BN SpeechDNN."""
+        make = (make_speech_dnn if self._speech_kernels
+                else make_parity_speech_dnn)
+        return make(variables, device)
+
+    def _check_host_audio(self) -> None:
+        """MEC_HOST_AUDIO_FEATURES (JAX engine.py:128-146): the port has
+        no host featurizer until ROADMAP A15, so in bf16 an explicit on
+        value raises, and 'auto' resolves to off (JAX's answer on a host
+        without its built featurizer), with a warning where JAX's rule
+        (bf16, >= 4 CPUs) would have turned it on. fp32 never uses it."""
+        if self.compute_dtype != torch.bfloat16:
+            return
+        ha = str(Config.HOST_AUDIO_FEATURES).lower()
+        if ha in ('1', 'true', 'yes', 'on'):
+            raise NotImplementedError(
+                f'MEC_HOST_AUDIO_FEATURES={Config.HOST_AUDIO_FEATURES}: the '
+                'port has no host audio featurizer yet (ROADMAP.md queue A '
+                'item A15); unset it or set it to 0 or auto')
+        if ha == 'auto' and (os.cpu_count() or 1) >= 4:
+            log.warning('MEC_HOST_AUDIO_FEATURES=auto: the JAX engine would '
+                        'featurize audio on this host (%d CPUs); the port '
+                        'has no host featurizer until ROADMAP A15 and ships '
+                        'the waveform', os.cpu_count())
+
     def _replica(self, device: torch.device) -> 'EmotionEngine':
         """This engine's models on `device`: the same calibrated trees
         and modules, copied (the speech DNN rebuilt from its tree, as the
@@ -472,11 +531,9 @@ class EmotionEngine:
         for name in ('image', 'bert', 'fusion', 'lstm', 'forest'):
             setattr(rep, name, _move(getattr(self, name), device))
         if self.speech is not None:
-            make_dnn = (make_speech_dnn
-                        if self.compute_dtype == torch.bfloat16
-                        else make_parity_speech_dnn)
             rep.speech = dict(self.speech,
-                              dnn=make_dnn(self.speech['variables'], device),
+                              dnn=self._make_dnn(self.speech['variables'],
+                                                 device),
                               scaler=_move(self.speech['scaler'], device))
         return rep
 
@@ -495,9 +552,12 @@ class EmotionEngine:
                 return os.path.join(models_dir, os.path.basename(p))
             return p
 
+        from mec_tpu_torch.convert import (hf_bert, keras_h5, sklearn_rf,
+                                           torch_pt)
         kw: Dict[str, Any] = {}
         paths: Dict[str, str] = {}
-        speech = _read_native(path(Config.SPEECH_MODEL_PATH))
+        speech = _load_native_or(path(Config.SPEECH_MODEL_PATH),
+                                 keras_h5.convert_speech_h5)
         scaler = None
         if speech is not None:
             scaler_path = path(Config.SPEECH_SCALER_PATH)
@@ -506,44 +566,56 @@ class EmotionEngine:
                 with np.load(npz) as z:
                     scaler = (z['mean'], z['scale'])
             elif os.path.exists(scaler_path):
-                _not_ported(f'21 (the checkpoint converters: '
-                            f'{scaler_path} has no .npz beside it)')
+                # the JAX engine reads the .pkl at every load; the port
+                # caches it as convert_all does
+                scaler = keras_h5.load_sklearn_scaler(scaler_path)
+                _save_cache(scaler_path, npz, lambda: np.savez(
+                    npz, mean=scaler[0], scale=scaler[1]))
         bert_dir = path(Config.BERT_MODEL_PATH)
         nat = os.path.join(bert_dir, 'bert_model.mecp')
+        bert = None
         if os.path.exists(nat):
-            loaded = store.load_params(nat)
+            bert = store.load_params(nat)
+        elif any(os.path.exists(os.path.join(bert_dir, f))
+                 for f in ('pytorch_model.bin', 'model.safetensors')):
+            # JAX engine.py:309-325: convert and cache, without a meta
+            bert = {'variables': hf_bert.convert_bert_dir(bert_dir)}
+            _save_cache(bert_dir, nat, lambda: store.save_params(
+                nat, bert['variables']))
+        if bert is not None:
             cfg = (read_config(bert_dir) if os.path.exists(
                 os.path.join(bert_dir, 'config.json')) else {})
-            kw.update(bert_variables=loaded['variables'],
+            kw.update(bert_variables=bert['variables'],
                       bert_kwargs=model_kwargs_from_config(cfg),
                       bert_vocab=WordPieceTokenizer.from_pretrained_dir(
                           bert_dir),
-                      bert_meta=loaded.get('meta') or {})
+                      bert_meta=bert.get('meta') or {})
             paths['bert'] = nat
-        elif any(os.path.exists(os.path.join(bert_dir, f))
-                 for f in ('pytorch_model.bin', 'model.safetensors')):
-            _not_ported(f'21 (the checkpoint converters: {bert_dir} has no '
-                        f'bert_model.mecp)')
-        # the Bi-LSTM serves with its tokenizer only (JAX engine.py:346-364)
+        # the Bi-LSTM is loaded (and converted) as in JAX
+        # (engine.py:346-364) and serves with its tokenizer only
+        lstm = _load_native_or(path(Config.TEXT_MODEL_PATH),
+                               keras_h5.convert_lstm_text_h5)
         tok = path(os.path.splitext(Config.TEXT_MODEL_PATH)[0] + '_tokenizer')
         toks = [tok + e for e in ('.json', '.pkl') if os.path.exists(tok + e)]
-        lstm = _read_native(path(Config.TEXT_MODEL_PATH)) if toks else None
-        if lstm is not None:
+        if lstm is not None and toks:
             kw.update(lstm_variables=lstm['variables'],
                       lstm_tokenizer=KerasTokenizer.load(toks[0]))
         image_ref = path(Config.IMAGE_MODEL_PATH.replace('.h5', '.pt'))
-        image = _read_native(image_ref)
+        image = _load_native_or(image_ref, torch_pt.convert_image_pt)
         if image is not None:
             kw.update(image_variables=image['variables'],
                       image_meta=image['meta'])
             paths['image'] = store.native_path(image_ref)
-        fusion = _read_native(path(Config.FUSION_MODEL_PATH.replace('.pkl',
-                                                                    '.pt')))
+        fusion = _load_native_or(
+            path(Config.FUSION_MODEL_PATH.replace('.pkl', '.pt')),
+            lambda p: (torch_pt.convert_fusion_pt(p),
+                       {'config': torch_pt.fusion_config_from_pt(p)}))
         if fusion is not None:
             kw.update(fusion_variables=fusion['variables'],
                       fusion_config=fusion['meta'].get('config', {}))
         if Config.FUSION_MODE == 'rf':
-            rf = _read_native(path(Config.FUSION_RF_MODEL_PATH))
+            rf = _load_native_or(path(Config.FUSION_RF_MODEL_PATH),
+                                 sklearn_rf.convert_fusion_rf)
             if rf is not None:
                 kw.update(forest_arrays=rf['variables']['forest'],
                           forest_meta=rf['meta'])

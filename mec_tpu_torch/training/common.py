@@ -6,9 +6,9 @@ the stop is honoured, resume, epoch_transform, on_epoch_end) is the JAX
 fit's, line for line; the device work is one eager step a batch on the
 module's device. Not ported: the lax.scan epoch paths (a TPU dispatch
 workaround; one per-step loop replaces them, with the same batch order
-and the same ragged tail) and record_metrics (it writes through
-mec_tpu.database, which the port cannot import; the JAX trainers swallow
-its every error).
+and the same ragged tail). record_metrics writes each trainer's
+validation metrics into the model_metrics table through the port's
+database/ (best effort, as in JAX).
 
 The optimizers are optax's, written over torch tensors and pinned to
 optax by tests/test_torch_train_optim.py:
@@ -523,6 +523,29 @@ def _rank_path(path: str, mesh: Optional[pmesh.DataMesh]) -> str:
     if mesh is None or (mesh.model_rank == 0 and mesh.pipe_rank == 0):
         return path
     return f'{path}.m{mesh.model_rank}p{mesh.pipe_rank}'
+
+
+def record_metrics(model_name: str, val_acc: float,
+                   y_true=None, y_pred=None) -> None:
+    """Best-effort accuracy/F1 logging into the model_metrics table
+    (mec_tpu/training/common.py:163-185; the reference defines the table
+    but never writes it, reference database/db_operations.py:75-84)."""
+    try:
+        from mec_tpu_torch.database import get_db
+        from mec_tpu_torch.training import metrics as m
+        f1 = precision = recall = None
+        if y_true is not None and y_pred is not None and len(y_true):
+            pr = m.precision_recall_f1(np.asarray(y_true),
+                                       np.asarray(y_pred),
+                                       int(max(np.max(y_true), 6)) + 1)
+            precision = float(pr['precision'].mean())
+            recall = float(pr['recall'].mean())
+            f1 = float(pr['f1'].mean())
+        get_db().record_model_metric(model_name, accuracy=float(val_acc),
+                                     precision_score=precision,
+                                     recall_score=recall, f1_score=f1)
+    except Exception:
+        pass
 
 
 def fit(state: TrainState,

@@ -211,6 +211,8 @@ def train(num_samples: int = 10000, epochs: int = 100,
     if not common.writes(mesh):
         common.barrier(mesh)
         return variables, cfg, history
+    common.record_metrics('fusion_attention', max(history['val_acc']),
+                          labels[va], preds)
     models_dir = models_dir or os.path.dirname(Config.FUSION_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'fusion_model.mecp')

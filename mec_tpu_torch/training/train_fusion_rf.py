@@ -27,7 +27,7 @@ import numpy as np
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.convert import store
 from mec_tpu_torch.models import forest
-from mec_tpu_torch.training import metrics
+from mec_tpu_torch.training import common, metrics
 from mec_tpu_torch.training.train_fusion import (extract_real_features,
                                                  generate_synthetic_data)
 
@@ -69,6 +69,7 @@ def train(num_samples: int = 10000, n_estimators: int = 100,
     log('\n' + metrics.classification_report(labels[va], preds,
                                              Config.EMOTIONS))
 
+    common.record_metrics('fusion_rf', val_acc, labels[va], preds)
     models_dir = models_dir or os.path.dirname(Config.FUSION_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     pkl = os.path.join(models_dir, 'fusion_rf.pkl')

@@ -180,6 +180,7 @@ def train(data_root: str, img_size: int = 224, batch_size: int = 32,
     if not common.writes(mesh):
         common.barrier(mesh)
         return variables, hists
+    common.record_metrics(f'image_{arch}', best_acc, labels[va], preds)
     models_dir = models_dir or os.path.dirname(Config.IMAGE_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'image_model.mecp')

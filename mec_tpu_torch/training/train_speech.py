@@ -121,6 +121,8 @@ def train(data_root: str = 'datasets/speech', pattern: str = '**/*.wav',
     if not common.writes(mesh):
         common.barrier(mesh)
         return variables, (mean, scale), history
+    common.record_metrics('speech_dnn', max(history['val_acc']),
+                          y_val, preds)
     models_dir = models_dir or os.path.dirname(Config.SPEECH_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'speech_model.mecp')

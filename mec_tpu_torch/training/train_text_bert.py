@@ -15,8 +15,9 @@ update (optax.MultiSteps' semantics), --remat recomputes each encoder
 layer in the backward pass, --bf16 runs the fp32 model under
 torch.autocast(bfloat16) (the parameters stay fp32). --pretrained-dir:
 a bert_model.mecp there initialises the encoder (all but the
-classifier); an HF checkpoint without one raises NotImplementedError
-naming ROADMAP item 21 (the converters); a directory holding only
+classifier), else its HF weights (pytorch_model.bin or
+model.safetensors, converted by convert/hf_bert.py, as the JAX trainer
+converts them; a failed conversion raises); a directory holding only
 vocab.txt gives the vocab and a random init, as in JAX.
 
 --experts N swaps every layer's FFN for N top-1-routed experts
@@ -111,28 +112,32 @@ def tokenize_corpus(tokenizer: WordPieceTokenizer, texts,
 def init_from_pretrained(model: BertForSequenceClassification,
                          bert_dir: str, log=print) -> None:
     """Load the encoder (every top-level node but the classifier) from
-    bert_dir/bert_model.mecp when there is one. Its layers must have the
-    model's FFN kind (dense or MoE)."""
+    bert_dir/bert_model.mecp, or else from the HF weights there
+    (pytorch_model.bin or model.safetensors, converted as the JAX trainer
+    converts them, mec_tpu/training/train_text_bert.py:86-97); random
+    init when the directory holds neither. A failed conversion raises,
+    where the JAX trainer falls back to random init (C5). Its layers must
+    have the model's FFN kind (dense or MoE)."""
     if not bert_dir or not os.path.isdir(bert_dir):
         return
     nat = os.path.join(bert_dir, 'bert_model.mecp')
-    if not os.path.exists(nat):
-        if any(os.path.exists(os.path.join(bert_dir, f)) for f in
-               ('pytorch_model.bin', 'model.safetensors', 'tf_model.h5')):
-            raise NotImplementedError(
-                f'not ported to mec_tpu_torch yet: ROADMAP.md queue A item '
-                f'21 (the checkpoint converters: {bert_dir} has no '
-                f'bert_model.mecp)')
-        log(f'Pretrained init unavailable (no bert_model.mecp in '
-            f'{bert_dir}); using random init')
+    if os.path.exists(nat):
+        source, pre = nat, store.load_params(nat)['variables']['params']
+    elif any(os.path.exists(os.path.join(bert_dir, f)) for f in
+             ('pytorch_model.bin', 'model.safetensors')):
+        from mec_tpu_torch.convert.hf_bert import convert_bert_dir
+        source, pre = bert_dir, convert_bert_dir(bert_dir)['params']
+    else:
+        log(f'Pretrained init unavailable (no bert_model.mecp, '
+            f'pytorch_model.bin or model.safetensors in {bert_dir}); '
+            f'using random init')
         return
-    pre = store.load_params(nat)['variables']['params']
     variables = to_jax(model)
     for k, v in variables['params'].items():
         if k.startswith('layer_') and k in pre \
                 and ('moe' in v) != ('moe' in pre[k]):
             raise ValueError(
-                f'{nat}: its {k} is '
+                f'{source}: its {k} is '
                 f'{"an MoE" if "moe" in pre[k] else "a dense"} layer and the '
                 f'model\'s is {"an MoE" if "moe" in v else "a dense"} one '
                 f'(--experts {model.num_experts}): a pretrained encoder '
@@ -143,7 +148,7 @@ def init_from_pretrained(model: BertForSequenceClassification,
         if k in pre and k != 'classifier':
             variables['params'][k] = pre[k]
     model.load_state_dict(state_from_jax(variables))
-    log(f'Initialized encoder from {nat}')
+    log(f'Initialized encoder from {source}')
 
 
 def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
@@ -268,6 +273,8 @@ def train(csv_path: str, epochs: int = 5, batch_size: int = 16,
     if not common.writes(mesh):
         common.barrier(mesh)
         return variables, history
+    common.record_metrics('bert_text', max(history['val_acc']),
+                          val_data['label'], preds)
     models_dir = models_dir or Config.BERT_MODEL_PATH
     os.makedirs(models_dir, exist_ok=True)
     store.save_params(os.path.join(models_dir, 'bert_model.mecp'),

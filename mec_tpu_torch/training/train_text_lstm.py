@@ -104,6 +104,8 @@ def train(csv_path: str, epochs: int = 10, batch_size: int = 32,
     if not common.writes(mesh):
         common.barrier(mesh)
         return variables, tokenizer, history
+    common.record_metrics('lstm_text', max(history['val_acc']),
+                          labels[te], preds)
     models_dir = models_dir or os.path.dirname(Config.TEXT_MODEL_PATH)
     os.makedirs(models_dir, exist_ok=True)
     out = os.path.join(models_dir, 'text_model.mecp')

@@ -111,32 +111,53 @@ def test_port_never_imports_jax():
     assert hits == []
 
 
-def test_port_imports_without_jax_flax_msgpack_werkzeug():
-    """Every module of the port imports in a process where jax, flax,
-    optax, msgpack and werkzeug cannot be imported (the card's machine),
-    nor the reference's checkpoint readers (sklearn, joblib, h5py,
-    safetensors): the trainers import sklearn and joblib only when
-    train_fusion_rf trains."""
-    code = '''
+_BLOCKER = '''
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack',
-                                  'werkzeug', 'mec_tpu', 'sklearn', 'h5py',
-                                  'safetensors', 'joblib'):
+        if name.split('.')[0] in BLOCKED:
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
 import mec_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mec_tpu_torch.__path__,
                                                'mec_tpu_torch.')]
+'''
+
+
+def test_port_imports_without_jax_flax_msgpack_werkzeug():
+    """Every module of the port imports in a process where jax, flax,
+    optax, msgpack and werkzeug cannot be imported, nor the reference's
+    checkpoint readers (sklearn, joblib, h5py, safetensors): the
+    trainers import sklearn and joblib only when train_fusion_rf trains,
+    the converters theirs only when a conversion runs. The web app
+    (mec_tpu_torch.webapp.*) needs werkzeug, which the card's machine
+    has: a second process imports it with werkzeug allowed and the rest
+    blocked, and without jinja2 being imported (the HTML pages import
+    it at their first render)."""
+    blocked = ('jax', 'flax', 'optax', 'msgpack', 'mec_tpu', 'sklearn',
+               'h5py', 'safetensors', 'joblib')
+    code = (f'BLOCKED = {blocked + ("werkzeug",)!r}' + _BLOCKER + '''
+names = [n for n in names if not n.startswith('mec_tpu_torch.webapp')]
 for n in names:
     importlib.import_module(n)
 print(len(names))
-'''
+''')
     out = subprocess.run([sys.executable, '-c', code], cwd=_REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 60
+    code = f'BLOCKED = {blocked!r}' + _BLOCKER + '''
+names = [n for n in names if n.startswith('mec_tpu_torch.webapp.')]
+for n in names:
+    importlib.import_module(n)
+assert 'jinja2' not in sys.modules
+print(' '.join(sorted(names)))
+'''
+    out = subprocess.run([sys.executable, '-c', code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [f'mec_tpu_torch.webapp.{m}' for m in
+                                  ('app', 'ratelimit', 'serve', 'sessions')]
 
 
 # ----------------------------------------------------------------------

@@ -199,11 +199,13 @@ def test_lstm_needs_its_tokenizer(jax_trained, tmp_path):
 def test_lstm_h5_without_its_mecp_names_the_converters(jax_trained,
                                                        tmp_path):
     """A reference-format text_model.h5 beside its tokenizer, with no
-    .mecp: the port has no converter and says so (ROADMAP item 21)."""
+    .mecp, goes to the Keras converter (convert/keras_h5.py); bytes that
+    are no HDF5 file raise there (h5py's OSError; the JAX engine would
+    log it and serve the keyword map, C5) and no cache is written."""
     (tmp_path / 'text_model.h5').write_bytes(b'not read')
     (tmp_path / 'text_model_tokenizer.json').write_bytes(
         open(os.path.join(jax_trained, 'text_model_tokenizer.json'),
              'rb').read())
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP\.md queue A item 21 '):
+    with pytest.raises(OSError, match='file signature not found'):
         EmotionEngine.from_models_dir(str(tmp_path), device='cpu')
+    assert not (tmp_path / 'text_model.mecp').exists()

@@ -30,6 +30,7 @@ Tolerances, each with its reason:
 
 import logging
 import os
+import pickle
 import re
 import shutil
 
@@ -388,25 +389,28 @@ def _copy(src, dst):
     return str(dst)
 
 
-@pytest.mark.parametrize('ref_file,native', [
-    ('speech_model.h5', 'speech_model.mecp'),
-    ('speech_scaler.pkl', 'speech_scaler.npz'),
-    ('image_model.pt', 'image_model.mecp'),
-    ('fusion_model.pt', 'fusion_model.mecp'),
-    ('bert_model/pytorch_model.bin', 'bert_model/bert_model.mecp'),
-    ('fusion_rf.pkl', 'fusion_rf.mecp')])
+@pytest.mark.parametrize('ref_file,native,error', [
+    ('speech_model.h5', 'speech_model.mecp', OSError),
+    ('speech_scaler.pkl', 'speech_scaler.npz', IndexError),
+    ('image_model.pt', 'image_model.mecp', pickle.UnpicklingError),
+    ('fusion_model.pt', 'fusion_model.mecp', pickle.UnpicklingError),
+    ('bert_model/pytorch_model.bin', 'bert_model/bert_model.mecp',
+     pickle.UnpicklingError),
+    ('fusion_rf.pkl', 'fusion_rf.mecp', IndexError)])
 def test_reference_format_alone_raises_item_21(tiny_dir, tmp_path, ref_file,
-                                               native, monkeypatch):
-    """The JAX engine would convert such a file; the port has no
-    converters and does not serve the fallback in its place."""
+                                               native, error, monkeypatch):
+    """A reference-format file with no cache beside it is converted at
+    load (tests/test_torch_convert.py); one that does not convert (h5py,
+    joblib or torch.load refuse its bytes) raises, where the JAX engine
+    logs and serves the fallback (C5), and leaves no cache behind."""
     monkeypatch.setattr(Config, 'FUSION_MODE', 'rf')
     d = _copy(tiny_dir, tmp_path / 'm')
     os.remove(os.path.join(d, native))
     with open(os.path.join(d, ref_file), 'wb') as f:
         f.write(b'reference checkpoint')
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP\.md queue A item 21 '):
+    with pytest.raises(error):
         EmotionEngine.from_models_dir(d, device='cpu')
+    assert not os.path.exists(os.path.join(d, native))
 
 
 def test_corrupt_mecp_raises(tiny_dir, tmp_path):

@@ -216,9 +216,13 @@ def test_cli_lists_the_train_commands_and_their_flags(capsys):
     for cmd in ('train-speech', 'train-text-bert', 'train-text-lstm',
                 'train-image', 'train-fusion', 'train-fusion-rf'):
         assert cmd in out.stdout
-    for cmd, item in (('serve', 'A14'), ('convert', 'A21')):
+    for cmd in ('serve', 'convert'):
+        line = next(ln for ln in out.stdout.splitlines()
+                    if ln.split()[:1] == [cmd])
+        assert 'not ported' not in line, line
+    for cmd in ('download', 'organize'):
         assert cli_main([cmd]) == 2
-        assert f'item {item}' in capsys.readouterr().err
+        assert 'item A13' in capsys.readouterr().err
     flags = {
         'train-speech': ('--data-root', '--pattern', '--label-from',
                          '--no-augment', '--mesh-data', '--checkpoint',
