@@ -23,7 +23,13 @@ K1-K4, K6, K7 on each) and the BERT trainer's tensor, sequence, expert
 and pipeline parallelism (two gloo ranks sharing the card); and the
 system's entry point: a reference-format models directory (.pt, HF
 BERT) converted at load and served over HTTP by the port's web app and
-its serve CLI (K1-K4, K6, K7 once a tri-modal request's dispatch).
+its serve CLI (K1-K4, K6, K7 once a tri-modal request's dispatch);
+and the native host runtime: the C++ wire encoders, WordPiece encoder
+and audio featurizer built with g++ from the checkout, and speech and
+tri-modal engines with MEC_HOST_AUDIO_FEATURES=1, whose wire is the
+host's 56 features (K4, and K6, K7 tri-modal; K1-K3, K5 never). Every
+phase before 6g runs with MEC_HOST_AUDIO_FEATURES=0 (the waveform
+wire), set before the port is imported.
 
 Phases (the first failure exits non-zero; no phase's failure is caught):
   1. device   require a CUDA device; print nvidia-smi's name, power.limit
@@ -197,6 +203,31 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               MEC_PALLAS_TUNING=0 and MEC_PALLAS_ROLLOFF=0 (K2 or K3
               off), each within SPEECH_BAND of the cpu; a fresh
               interpreter reads a .env in its working directory
+  6g. host    native.status() (wirecodec, wordpiece, audiofeat built by
+              g++ from mec_tpu_torch/native/*.cpp; all three must load)
+              and what MEC_HOST_AUDIO_FEATURES=auto resolves to on this
+              host; at B=32 full width: encode_pcm12 native bytes equal
+              to numpy, encode_yuv420 Y equal and UV within one code,
+              WordPiece ids and mask (32 texts, max_length 128) equal to
+              Python, extract56 within the original's contract of
+              features_56_np on the contract's six clips and in MFCC and
+              the spectral scalars on 32 seeded clips (chroma rows past
+              1e-3 counted: tuning near-ties); a bf16 speech engine and
+              the full-width tri-modal engine of phase 6 (its trees and
+              card scales) with MEC_HOST_AUDIO_FEATURES=1, warmed up (1,
+              8, 32) and predicting B=1, 5, 32 (and one request from its
+              files): K4 once a dispatch, K6 and K7 once a tri-modal
+              dispatch, K1-K3 and K5 never; agreement with the same
+              engines on device='cpu' within SPEECH_BAND and TRI_BAND;
+              preprocess_audio on a WAV on the card (K2 once, within
+              1e-4 + 2e-6|c| of device='cpu'); host times in turns:
+              the encoders native against numpy at B=1, 32, WordPiece
+              native against Python, extract56 against features_56_np
+              at B=1, 8, 32 beside the bf16 speech device step of each
+              wire, and predict_multimodal b1 (p50 of 20) and
+              predict_multimodal_batch b32 (p50 of 10) with the
+              waveform wire and with host features; the host's CPU model
+              and count
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
               in a marked torch.profiler range of the same 30 calls,
@@ -221,7 +252,8 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               kernels (name, route, source, replaces, launches and
               launches on the tri-modal paths (launches_by_path: the
               dense engines', the MoE engine's, the two-replica engine's
-              of 6e, the HTTP requests' of 6f), launches_per_dispatch,
+              of 6e, the HTTP requests' of 6f, the host-feature engines'
+              of 6g with their dispatches), launches_per_dispatch,
               serve_dp_launches_per_dispatch, moe_launches_per_dispatch
               and entry_launches_per_dispatch, max_abs_err,
               ms by events, device_ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
@@ -2183,8 +2215,337 @@ def entry_phase(card, wrappers, tri_waves, tri_pics, device='cuda'):
     return http_counts, dispatches
 
 
+# ----------------------------------------------------------------------
+# phase 6g: the native host runtime and the host audio features
+# ----------------------------------------------------------------------
+def host_ms(fn, reps):
+    """Median host-clock milliseconds of fn() over reps calls, after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def in_turns(fns, reps):
+    """{name: median ms} of host-clock timings of each fn, taken in turns
+    (a, b, b, a for two) so drift hits all alike; each leg reps calls."""
+    order = list(fns) + list(reversed(list(fns)))
+    legs = {name: [] for name in fns}
+    for name in order:
+        legs[name].append(host_ms(fns[name], reps))
+    return {name: statistics.median(v) for name, v in legs.items()}
+
+
+def cpu_model():
+    """The host CPU's model name: /proc/cpuinfo's, else lscpu's (a
+    virtualised host may report 'unknown' in both), else the machine
+    type."""
+    import platform
+    lines = []
+    try:
+        with open('/proc/cpuinfo', encoding='utf-8', errors='replace') as f:
+            lines += [ln for ln in f if ln.startswith('model name')]
+    except OSError:
+        pass
+    try:
+        lines += [ln for ln in subprocess.run(
+            ['lscpu'], capture_output=True, text=True,
+            timeout=30).stdout.splitlines() if ln.startswith('Model name:')]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    for ln in lines:
+        name = ln.split(':', 1)[1].strip()
+        if name and name.lower() != 'unknown':
+            return name
+    return f'CPU model not reported ({platform.machine()})'
+
+
+def contract_clips():
+    """The six clips of the host-features contract
+    (tests/test_host_features.py:24-36): a tone, a chord, noise,
+    silence, a tone in noise, a clipped burst."""
+    rng = np.random.RandomState(0)
+    t = np.arange(N) / 22050
+    return np.stack([
+        0.1 * np.sin(2 * np.pi * 330 * t),
+        0.05 * np.sin(2 * np.pi * 261.63 * t)
+        + 0.02 * np.sin(2 * np.pi * 523.25 * t),
+        rng.randn(N) * 0.05,
+        np.zeros(N),
+        rng.randn(N) * 0.02 + 0.05 * np.sin(2 * np.pi * 440 * t),
+        np.clip(rng.randn(N) * 0.4, -1, 1),
+    ]).astype(np.float32)
+
+
+def host_phase(card, wrappers, speech_tree, scaler, tri_engine, bert_meta,
+               wave_tri, wave_speech, requests, tri_waves, tri_pics):
+    """6g (host). The native host libraries built with g++ from the
+    checkout (all three must load); at full width the C++ encoders and
+    the WordPiece encoder against their numpy and Python versions, and
+    the C++ featurizer against features_56_np; a bf16 speech engine and
+    a full-width tri-modal engine (phase 6's trees and scales) with
+    MEC_HOST_AUDIO_FEATURES=1, warmed up (1, 8, 32) and predicting B=1,
+    5, 32: K4 once a dispatch (and K6, K7 tri-modal), K1, K2, K3, K5
+    never; each within SPEECH_BAND or TRI_BAND of the same engine on
+    device='cpu'; preprocess_audio on a WAV on the card (K2 once, within
+    the parity contract of device='cpu'); then the host timings (encoders,
+    tokenizer, featurizer beside the speech device step, and the two
+    audio wires of the tri-modal request in turns). Returns (launch
+    counts, dispatches) of the host-feature engines."""
+    import torch
+
+    from mec_tpu_torch import native
+    from mec_tpu_torch.config import Config
+    from mec_tpu_torch.native import featurizer
+    from mec_tpu_torch.native.tokenizer import accelerate
+    from mec_tpu_torch.ops import audio_features as af
+    from mec_tpu_torch.ops import host_features
+    from mec_tpu_torch.preprocessing.audio_preprocessing import \
+        preprocess_audio
+    from mec_tpu_torch.serving import wire
+    from mec_tpu_torch.serving.engine import EmotionEngine
+    from mec_tpu_torch.serving.synthetic_artifacts import make_vocab
+    from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
+    t_phase = time.perf_counter()
+    host = f'{cpu_model()}, os.cpu_count() {os.cpu_count()}'
+    t0 = time.perf_counter()
+    status = native.status()
+    print(f'host: native.status() {status} (g++ build and load '
+          f'{time.perf_counter() - t0:.2f} s); {host}')
+    check(all(status.values()), f'native libraries not all loaded: {status}')
+    saved = Config.HOST_AUDIO_FEATURES
+    try:
+        Config.HOST_AUDIO_FEATURES = 'auto'
+        auto = EmotionEngine(compute_dtype='bfloat16', device='cpu')
+        print(f"host: MEC_HOST_AUDIO_FEATURES=auto resolves to "
+              f"{'on' if auto._host_audio else 'off'} on this host "
+              f"({os.cpu_count()} CPUs, C++ featurizer "
+              f"{featurizer.have_native()})")
+        Config.HOST_AUDIO_FEATURES = '1'
+        speech = EmotionEngine(speech_tree, scaler, compute_dtype='bfloat16',
+                               device='cuda')
+        speech_cpu = EmotionEngine(speech_tree, scaler,
+                                   compute_dtype='bfloat16', device='cpu')
+        tri = tri_engine('cuda', 'bfloat16', 'high', bert_meta)
+        tri_cpu = tri_engine('cpu', 'bfloat16', 'high', bert_meta)
+    finally:
+        Config.HOST_AUDIO_FEATURES = saved
+    check(speech._host_audio and tri._host_audio and tri._all_live
+          and tri._bert_scales_cached and tri._image_scales_cached
+          and tri_cpu._bert_scales_cached and tri_cpu._image_scales_cached,
+          'host-feature engines: flag not on, or the card\'s scales not '
+          'taken')
+
+    # the libraries against their numpy and Python versions, full width
+    clips = waves(32, seed=11)
+    pics = images(32, seed=12)
+    texts = [(' '.join(TEXTS) + ' ') * (1 + i % 4) for i in range(32)]
+    got = wire.encode_pcm12(clips)
+    for g, w in zip(got, wire.encode_pcm12_np(clips)):
+        check(g.dtype == w.dtype and np.array_equal(g, w),
+              'encode_pcm12: native bytes differ from numpy')
+    (y8, uv8), (ny, nuv) = wire.encode_yuv420(pics), wire.encode_yuv420_np(pics)
+    uv_err = int(np.abs(uv8.astype(int) - nuv.astype(int)).max())
+    check(np.array_equal(y8, ny) and uv_err <= 1,
+          f'encode_yuv420: Y differs or UV off numpy by {uv_err} > 1 code')
+    tok = WordPieceTokenizer(make_vocab())
+    py_ids, py_mask = tok.encode_batch(texts, 128)
+    check(accelerate(tok), 'accelerate() did not take the native encoder')
+    n_ids, n_mask = tok.encode_batch(texts, 128)
+    check(np.array_equal(n_ids, py_ids) and np.array_equal(n_mask, py_mask),
+          'native WordPiece ids or mask differ from Python')
+    print(f'host: B=32 full width: encode_pcm12 native bytes = numpy; '
+          f'encode_yuv420 Y = numpy, UV within {uv_err} code; WordPiece '
+          f'(32 texts, max_length 128) ids and mask = Python')
+
+    def feature_err(got, ref):
+        d = np.abs(got - ref)
+        return (d[:, :40].max(axis=1), d[:, 40:52].max(axis=1),
+                (d[:, 52:] / (np.abs(ref[:, 52:]) + 1.0)).max(axis=1))
+
+    # the original's contract (tests/test_host_features.py:83-87) on its
+    # six clips; on the seeded clips MFCC and the spectral scalars too,
+    # while chroma follows each path's tuning estimate, whose histogram
+    # has near-ties on noise (ROADMAP C4): rows beyond 1e-3 are counted,
+    # against the numpy mirror and against the card's parity frontend
+    six = contract_clips()
+    mfcc, chroma, spectral = feature_err(featurizer.extract56(six),
+                                         host_features.features_56_np(six))
+    check(mfcc.max() < 1e-2 and chroma.max() < 1e-3 and spectral.max() < 1e-3,
+          f'extract56 against features_56_np on the six contract clips '
+          f'(mfcc, chroma, spectral rel): {mfcc.max()}, {chroma.max()}, '
+          f'{spectral.max()}')
+    nat = featurizer.extract56(clips)
+    mfcc, chroma, spectral = feature_err(nat,
+                                         host_features.features_56_np(clips))
+    check(mfcc.max() < 1e-2 and spectral.max() < 1e-3,
+          f'extract56 against features_56_np at B=32: mfcc {mfcc.max()}, '
+          f'spectral rel {spectral.max()}')
+    with torch.inference_mode():
+        dev = af.audio_features_56(torch.from_numpy(clips).cuda(),
+                                   'parity').cpu().numpy()
+    _m, chroma_dev, _s = feature_err(nat, dev)
+    print(f'host: extract56 on the six contract clips within the original\'s '
+          f'contract; at B=32 against features_56_np: mfcc '
+          f'{mfcc.max():.3e} (< 1e-2), spectral rel {spectral.max():.3e} '
+          f'(< 1e-3), chroma {chroma.max():.3e} with '
+          f'{int((chroma > 1e-3).sum())} of 32 rows beyond 1e-3; against '
+          f'the card\'s parity frontend chroma {chroma_dev.max():.3e} with '
+          f'{int((chroma_dev > 1e-3).sum())} rows beyond 1e-3 (tuning '
+          f'near-ties)')
+
+    # the host-feature engines on the card: K4 (+ K6, K7) alone
+    def counts_after(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return out, {name: w.launches for name, w in wrappers.items()}
+
+    def want_only(counts, names, n, what):
+        for name, got in counts.items():
+            want = n if name in names else 0
+            check(got == want, f'{what}: {name} launched {got} times '
+                  f'(want {want})')
+
+    results, c_speech = counts_after(lambda: (
+        speech.warmup((1, 8, 32)),
+        {B: speech.predict_speech_waves(clips[:B], want_features=True)
+         for B in (1, 5, 32)})[1])
+    want_only(c_speech, ('speech_dnn',), 6, 'host-feature speech engine '
+              '(3 warmup, 3 predict dispatches)')
+    check(speech._wire_waves(clips[:5], 8)[0].shape == (8, 56),
+          'host-feature speech wire is not (bucket, 56)')
+    worst = 0.0
+    for B in (1, 5, 32):
+        ref = speech_cpu.predict_speech_waves(clips[:B], want_features=True)
+        worst = max(worst, check_results(results[B], ref, SPEECH_BAND,
+                                         f'host-feature speech B={B}'))
+        worst = max(worst, max(float(np.abs(g['_features'] - r['_features'])
+                                     .max()) for g, r in zip(results[B], ref)))
+    check(worst <= SPEECH_BAND, f'host-feature speech penult {worst}')
+    print(f'host: bf16 speech engine (host features): 6 dispatches, '
+          f'launches {c_speech}; probs and penult against device=cpu '
+          f'max|err| {worst:.3e} <= {SPEECH_BAND}')
+
+    seqs = sorted({s for s in Config.SEQ_BUCKETS
+                   if s < Config.MAX_TEXT_LENGTH} | {Config.MAX_TEXT_LENGTH})
+    batch_reqs = {B: [{'audio_path': f'{i}.wav', 'text': (TEXTS * 8)[i],
+                       'image_path': f'{i}.png', 'wave': tri_waves[i],
+                       'image': tri_pics[i]} for i in range(B)]
+                  for B in (1, 5, 32)}
+    tri_out, c_tri = counts_after(lambda: (
+        tri.warmup((1, 8, 32)),
+        {B: tri.predict_multimodal_batch(batch_reqs[B]) for B in (1, 5, 32)},
+        tri.predict_multimodal(**requests[0]))[1:])
+    dispatches = 3 + 3 * len(seqs) + 3 + 1
+    want_only(c_tri, ('speech_dnn', 'max_pool_3x3s2', 'layer1'), dispatches,
+              f'host-feature tri-modal engine ({dispatches} dispatches a '
+              'leg)')
+    k_packed = tri._run_trimodal(tri_waves[:8], (TEXTS * 2)[:8], tri_pics[:8])
+    c_packed = tri_cpu._run_trimodal(tri_waves[:8], (TEXTS * 2)[:8],
+                                     tri_pics[:8])
+    check(k_packed.shape == (8, 34) and bool(np.isfinite(k_packed).all()),
+          f'host-feature tri-modal rows {k_packed.shape}')
+    e_tri = float(np.abs(k_packed - c_packed).max())
+    e_speech = float(np.abs(k_packed[:, :7] - c_packed[:, :7]).max())
+    check(e_tri <= TRI_BAND and e_speech <= SPEECH_BAND,
+          f'host-feature tri-modal against cpu: {e_tri} (speech '
+          f'{e_speech})')
+    singles, batch5 = tri_out[1], tri_out[0][5]
+    for g, r in ((singles, tri_cpu.predict_multimodal(**requests[0])),) + \
+            tuple(zip(batch5, tri_cpu.predict_multimodal_batch(
+                batch_reqs[5]))):
+        for mod in ('speech', 'text', 'image', 'fusion'):
+            check_results([g[mod]], [r[mod]], TRI_BAND,
+                          f'host-feature tri-modal {mod}')
+    print(f'host: bf16 tri-modal engine (host features, phase 6 trees, '
+          f'card scales): {dispatches} dispatches a leg, launches {c_tri}; '
+          f'34 packed values against device=cpu max|err| {e_tri:.3e} <= '
+          f'{TRI_BAND} (speech {e_speech:.3e} <= {SPEECH_BAND})')
+
+    # the facade on the card: the parity frontend, K2 once
+    path = requests[0]['audio_path']
+    feats, c_pre = counts_after(lambda: preprocess_audio(path))
+    want_only(c_pre, ('tuning_select',), 1, 'preprocess_audio')
+    feats_cpu = preprocess_audio(path, device='cpu')
+    pre_ratio = float((np.abs(feats - feats_cpu)
+                       / (1e-4 + 2e-6 * np.abs(feats_cpu))).max())
+    check(feats.shape == (56,) and pre_ratio <= 1.0,
+          f'preprocess_audio card against cpu: {pre_ratio:.3f}x the parity '
+          'contract 1e-4 + 2e-6|c|')
+    print(f'host: preprocess_audio on the card: launches {c_pre}; against '
+          f'device=cpu max|err| {float(np.abs(feats - feats_cpu).max()):.3e}'
+          f', worst {pre_ratio:.3f} of 1e-4 + 2e-6|c|')
+
+    # host timings, each in turns (numpy or Python first)
+    for B in (1, 32):
+        t = in_turns({'numpy': lambda: wire.encode_pcm12_np(clips[:B]),
+                      'native': lambda: wire.encode_pcm12(clips[:B])}, 10)
+        u = in_turns({'numpy': lambda: wire.encode_yuv420_np(pics[:B]),
+                      'native': lambda: wire.encode_yuv420(pics[:B])}, 10)
+        print(f'time host encode_pcm12 B={B:2d}: numpy {t["numpy"]:.3f} ms, '
+              f'native {t["native"]:.3f} ms; encode_yuv420 B={B:2d}: numpy '
+              f'{u["numpy"]:.3f} ms, native {u["native"]:.3f} ms (medians '
+              f'of 10, in turns); {host}; {card}')
+    py_tok = WordPieceTokenizer(make_vocab())
+    t = in_turns({'python': lambda: py_tok.encode_batch(texts, 128),
+                  'native': lambda: tok.encode_batch(texts, 128)}, 10)
+    print(f'time host WordPiece encode_batch 32 texts max_length 128: Python '
+          f'{t["python"]:.3f} ms, native {t["native"]:.3f} ms (medians of '
+          f'10, in turns); {host}; {card}')
+    for B in (1, 8, 32):
+        t = in_turns({'numpy': lambda: host_features.features_56_np(
+                          clips[:B]),
+                      'native': lambda: featurizer.extract56(clips[:B])},
+                     2 if B == 32 else 3)
+        wire_w = wave_speech._to_device(wave_speech._wire_waves(clips[:B], B))
+        wire_f = speech._to_device(speech._wire_waves(clips[:B], B))
+        step_w = cuda_ms(lambda: wave_speech._speech_forward(wire_w))
+        step_f = cuda_ms(lambda: speech._speech_forward(wire_f))
+        print(f'time host featurizer B={B:2d}: features_56_np '
+              f'{t["numpy"]:.3f} ms, extract56 {t["native"]:.3f} ms (host, '
+              f'in turns); bf16 speech device step: waveform wire '
+              f'{step_w:.4f} ms, host-feature wire {step_f:.4f} ms (CUDA '
+              f'events, wire on the card); {host}; {card}')
+    reqs32 = batch_reqs[32]
+    walls = {('b1', 'waveform'): [], ('b1', 'host'): [],
+             ('b32', 'waveform'): [], ('b32', 'host'): []}
+    for name, eng in (('waveform', wave_tri), ('host', tri),
+                      ('host', tri), ('waveform', wave_tri)):
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.predict_multimodal(**requests[0])
+            walls['b1', name].append((time.perf_counter() - t0) * 1e3)
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.predict_multimodal_batch(reqs32)
+            walls['b32', name].append((time.perf_counter() - t0) * 1e3)
+    print('time tri-modal host wall by audio wire (in turns waveform, host, '
+          'host, waveform): '
+          + '; '.join(f'{b} {name} p50 {statistics.median(v):.2f} ms (min '
+                      f'{min(v):.2f}, max {max(v):.2f}, n {len(v)})'
+                      for (b, name), v in walls.items())
+          + f' (b1: predict_multimodal, WAV + PNG decode; b32: '
+          f'predict_multimodal_batch on decoded arrays); {host}; {card}')
+    counts = {n: c_speech[n] + c_tri[n] for n in wrappers}
+    del speech, speech_cpu, tri, tri_cpu
+    torch.cuda.empty_cache()
+    print(f'host phase wall: {time.perf_counter() - t_phase:.1f} s; {card}')
+    return counts, {'speech': 6, 'trimodal': dispatches}
+
+
 def main():
     t_start = time.perf_counter()
+    # the phases before 6g drive the waveform wire (K1-K3 once a bf16
+    # dispatch): on a host with >= 4 CPUs and g++, 'auto' would featurize
+    # audio on the host instead. Set before mec_tpu_torch.config is
+    # imported; the CLI and .env subprocesses inherit it. Phase 6g turns
+    # the feature on itself.
+    os.environ['MEC_HOST_AUDIO_FEATURES'] = '0'
     if not os.path.isdir(os.path.join(HERE, 'mec_tpu_torch')):
         fail('mec_tpu_torch/ is not beside chip_smoke.py: run it from a '
              'checkout of the repository')
@@ -2999,6 +3360,11 @@ def main():
     entry_launches, entry_dispatches = entry_phase(card, wrappers, tri_waves,
                                                    tri_pics)
 
+    # ----------------------------------------------------------- 6g host
+    host_launches, host_dispatches = host_phase(
+        card, wrappers, tree, scaler, tri_engine, bert_meta, tri['high'],
+        engine, requests, tri_waves, tri_pics)
+
     # ----------------------------------------------------------- 7 times
     # the models phase first: the MobileNetV2 image step, the rf
     # tri-modal step, the forest walk and MobileNetV2's depthwise conv
@@ -3267,11 +3633,14 @@ def main():
         e = {'name': name, 'route': 'cuda', 'source': sources[name][0],
              'replaces': sources[name][1],
              'launches': (tri_launches[name] + moe_launches[name]
-                          + dp_serve_launches[name] + entry_launches[name]),
+                          + dp_serve_launches[name] + entry_launches[name]
+                          + host_launches[name]),
              'launches_by_path': {'trimodal': tri_launches[name],
                                   'moe_trimodal': moe_launches[name],
                                   'serve_dp': dp_serve_launches[name],
-                                  'entry_http': entry_launches[name]},
+                                  'entry_http': entry_launches[name],
+                                  'host_features': host_launches[name]},
+             'host_features_dispatches': host_dispatches,
              'serve_dp_launches_per_dispatch': dp_serve_launches[name]
              / dp_serve_dispatches,
              'entry_launches_per_dispatch': entry_launches[name]

@@ -185,10 +185,10 @@ class Config:
     PALLAS_TUNING = _env_flag('MEC_PALLAS_TUNING', True)
     PALLAS_ROLLOFF = _env_flag('MEC_PALLAS_ROLLOFF', True)
 
-    # Host audio featurization in bf16 (JAX: 'auto' turns it on with >= 4
-    # CPUs and a built featurizer). The port has no host featurizer yet
-    # (ROADMAP A15): 'auto' resolves to off, an explicit on value raises
-    # in bf16 (serving/engine.py).
+    # Host audio featurization in bf16, resolved as in JAX
+    # (serving/engine.py::_resolve_host_audio): 1/true/yes/on turns it
+    # on; 'auto' turns it on with >= 4 CPUs and the C++ featurizer built
+    # (native/featurizer.py); fp32 parity mode never uses it.
     HOST_AUDIO_FEATURES = os.environ.get('MEC_HOST_AUDIO_FEATURES', 'auto')
 
     # bf16 serving: fold image-model BatchNorm into the conv kernels and

@@ -91,9 +91,19 @@ The kernel switches (Config.USE_PALLAS, PALLAS_TUNING, PALLAS_ROLLOFF)
 have the JAX package's scope: USE_PALLAS=0 puts the bf16 speech leg on
 the parity graph (K1, K3, K4, K5 off; the compressed wire stays), the
 other two turn off K2 and K3 alone (ops/audio_features.py); the engine
-logs which kernels a flag turned off. MEC_HOST_AUDIO_FEATURES has no
-host featurizer behind it yet (ROADMAP A15): on in bf16 raises, 'auto'
-is off.
+logs which kernels a flag turned off.
+
+MEC_HOST_AUDIO_FEATURES (Config.HOST_AUDIO_FEATURES) is resolved as in
+the JAX engine (engine.py:128-146): in bf16 it is on for 1/true/yes/on,
+and for 'auto' (the default) on a host with >= 4 CPUs whose C++
+featurizer g++ built; fp32 parity mode never uses it. With it on, the
+speech wire is the (bucket, 56) float32 features computed on the host
+(native/featurizer.py::extract56, or ops/host_features.features_56_np
+without g++), and the speech step standardizes them and runs the DNN
+(K4 in bf16) with no device frontend: K1, K2, K3 and K5 are not
+launched. The engine logs at build which audio wire it chose and why.
+The wire encoders (12-bit PCM, YUV 4:2:0) and the WordPiece tokenizer
+run the C++ loops of native/ where g++ is found, as in JAX.
 """
 
 from __future__ import annotations
@@ -129,6 +139,8 @@ from mec_tpu_torch.models.fusion import MultiModalFusionModel
 from mec_tpu_torch.models.mobilenet import MobileNetV2EmotionModel
 from mec_tpu_torch.models.resnet import ImageEmotionModel
 from mec_tpu_torch.models.speech_dnn import SpeechDNN
+from mec_tpu_torch.native import featurizer
+from mec_tpu_torch.native.tokenizer import accelerate
 from mec_tpu_torch.ops import audio_features as af
 from mec_tpu_torch.ops import wav
 from mec_tpu_torch.ops.dft_kernel import PRECISIONS
@@ -411,7 +423,7 @@ class EmotionEngine:
             log.warning('kernels turned off by MEC_USE_PALLAS, '
                         'MEC_PALLAS_TUNING or MEC_PALLAS_ROLLOFF: %s',
                         ', '.join(off))
-        self._check_host_audio()
+        self._host_audio = self._resolve_host_audio()
         if self._dft_precision not in ('high', 'parity') + PRECISIONS:
             raise ValueError(f'MEC_DFT_PRECISION {self._dft_precision!r}: '
                              'expected high, highest or bf16')
@@ -501,25 +513,36 @@ class EmotionEngine:
                 else make_parity_speech_dnn)
         return make(variables, device)
 
-    def _check_host_audio(self) -> None:
-        """MEC_HOST_AUDIO_FEATURES (JAX engine.py:128-146): the port has
-        no host featurizer until ROADMAP A15, so in bf16 an explicit on
-        value raises, and 'auto' resolves to off (JAX's answer on a host
-        without its built featurizer), with a warning where JAX's rule
-        (bf16, >= 4 CPUs) would have turned it on. fp32 never uses it."""
-        if self.compute_dtype != torch.bfloat16:
-            return
+    def _resolve_host_audio(self) -> bool:
+        """MEC_HOST_AUDIO_FEATURES as the JAX engine resolves it
+        (engine.py:128-146): bf16 only; on for 1/true/yes/on (with numpy
+        features where g++ is absent, as in JAX); 'auto' on only with
+        >= 4 CPUs and the C++ featurizer built (the numpy one would cost
+        more than the waveform's upload). Logs the wire chosen and why."""
         ha = str(Config.HOST_AUDIO_FEATURES).lower()
-        if ha in ('1', 'true', 'yes', 'on'):
-            raise NotImplementedError(
-                f'MEC_HOST_AUDIO_FEATURES={Config.HOST_AUDIO_FEATURES}: the '
-                'port has no host audio featurizer yet (ROADMAP.md queue A '
-                'item A15); unset it or set it to 0 or auto')
-        if ha == 'auto' and (os.cpu_count() or 1) >= 4:
-            log.warning('MEC_HOST_AUDIO_FEATURES=auto: the JAX engine would '
-                        'featurize audio on this host (%d CPUs); the port '
-                        'has no host featurizer until ROADMAP A15 and ships '
-                        'the waveform', os.cpu_count())
+        cpus = os.cpu_count() or 1
+        if self.compute_dtype != torch.bfloat16:
+            on, why = False, 'fp32 parity mode'
+        elif ha in ('1', 'true', 'yes', 'on'):
+            on = True
+            why = (f'MEC_HOST_AUDIO_FEATURES={Config.HOST_AUDIO_FEATURES}, '
+                   + ('C++ featurizer' if featurizer.have_native()
+                      else 'numpy featurizer: g++ not found'))
+        elif ha != 'auto':
+            on, why = False, (f'MEC_HOST_AUDIO_FEATURES='
+                              f'{Config.HOST_AUDIO_FEATURES}')
+        elif cpus < 4:
+            on, why = False, f'MEC_HOST_AUDIO_FEATURES=auto, {cpus} CPUs < 4'
+        elif not featurizer.have_native():
+            on, why = False, ('MEC_HOST_AUDIO_FEATURES=auto, no C++ '
+                              'featurizer (g++ not found)')
+        else:
+            on, why = True, (f'MEC_HOST_AUDIO_FEATURES=auto, {cpus} CPUs '
+                             'and the C++ featurizer')
+        log.info('speech wire: %s (%s)',
+                 'host features (bucket, 56) float32' if on else
+                 'waveform', why)
+        return on
 
     def _replica(self, device: torch.device) -> 'EmotionEngine':
         """This engine's models on `device`: the same calibrated trees
@@ -715,11 +738,18 @@ class EmotionEngine:
     # ------------------------------------------------------------------
     def _wire_waves(self, waves: np.ndarray, bucket: int):
         """Host side of the wire, row-padded to the bucket (JAX
-        engine.py:971-998): bf16 ships packed 12-bit PCM + per-clip scale
-        (Config.WIRE_COMPRESS) or PCM16; fp32 parity mode ships the
-        float32 samples."""
+        engine.py:975-998): with the host audio features on, the
+        (bucket, 56) float32 features (waveforms are featurized here;
+        rows already 56 wide pass through); else bf16 ships packed
+        12-bit PCM + per-clip scale (Config.WIRE_COMPRESS) or PCM16, and
+        fp32 parity mode the float32 samples."""
+        if self._host_audio:
+            if waves.shape[1] != N_FEATURES:
+                waves = featurizer.extract56(waves)
+            return (_pad_rows(np.ascontiguousarray(waves, np.float32),
+                              bucket),)
         if self._compress:
-            packed, scale = wire.encode_pcm12_np(waves)
+            packed, scale = wire.encode_pcm12(waves)
             return (_pad_rows(packed, bucket), _pad_rows(scale, bucket))
         if self.compute_dtype == torch.bfloat16:
             pcm = np.clip(np.rint(waves * 32768.0),
@@ -730,16 +760,21 @@ class EmotionEngine:
     @torch.inference_mode()
     def _speech_forward(self, wire_dev: Tuple[torch.Tensor, ...]
                         ) -> torch.Tensor:
-        """Device step: wire -> (bucket, 7 + 64) [probs | penult], the
-        frontend at self._dft_precision and the DNN of the mode (bf16:
-        the fused kernel's packed row; fp32: the live-BN module)."""
-        if len(wire_dev) == 2:
-            waves = wire.decode_pcm12(*wire_dev)
-        elif wire_dev[0].dtype == torch.int16:
-            waves = wire_dev[0].to(torch.float32) / 32768.0
+        """Device step: wire -> (bucket, 7 + 64) [probs | penult]: the
+        host's 56 features with the host audio on, else the frontend at
+        self._dft_precision on the decoded waveform; then the DNN of the
+        mode (bf16: the fused kernel's packed row; fp32: the live-BN
+        module)."""
+        if self._host_audio:
+            feats = wire_dev[0]
         else:
-            waves = wire_dev[0]
-        feats = af.audio_features_56(waves, self._dft_precision)
+            if len(wire_dev) == 2:
+                waves = wire.decode_pcm12(*wire_dev)
+            elif wire_dev[0].dtype == torch.int16:
+                waves = wire_dev[0].to(torch.float32) / 32768.0
+            else:
+                waves = wire_dev[0]
+            feats = af.audio_features_56(waves, self._dft_precision)
         mean, scale = self.speech['scaler']
         dnn = self.speech['dnn']
         packed = dnn((feats - mean) / scale)
@@ -811,6 +846,9 @@ class EmotionEngine:
         else:
             log.warning('BERT vocab missing; text model disabled')
             return
+        # the C++ encoder for ASCII batches (JAX engine.py:330-338); the
+        # Python encoder for the rest and where g++ is absent
+        accelerate(self.bert_tokenizer)
         bf16 = self.compute_dtype == torch.bfloat16
         if bf16 and Config.BERT_INT8:
             variables = quantize_bert_params(variables)
@@ -1040,7 +1078,7 @@ class EmotionEngine:
         Row-padded to the bucket."""
         if self._compress and imgs.shape[1] % 2 == 0 \
                 and imgs.shape[2] % 2 == 0:
-            y8, uv8 = wire.encode_yuv420_np(imgs)
+            y8, uv8 = wire.encode_yuv420(imgs)
             return (_pad_rows(y8, bucket), _pad_rows(uv8, bucket))
         return (_pad_rows(np.ascontiguousarray(imgs, np.uint8), bucket),)
 

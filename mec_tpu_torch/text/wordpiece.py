@@ -4,8 +4,9 @@ card's machine lacks). Pure Python: basic tokenization (cleaning, CJK
 spacing, lower-casing, accent stripping, punctuation splitting) and
 greedy longest-match WordPiece, with BertTokenizer's
 `max_length, padding='max_length', truncation=True` encoding.
-tests/test_torch_text.py pins the copy to the original. The JAX
-package's C++ fast path (mec_tpu/native/wordpiece.cpp) is not ported.
+tests/test_torch_text.py pins the copy to the original. The C++ fast
+path for ASCII batches is native/tokenizer.py::accelerate (the serving
+engine applies it to its BERT tokenizer); this encoder stays its meaning.
 """
 
 from __future__ import annotations

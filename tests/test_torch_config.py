@@ -271,7 +271,9 @@ def test_switches_turn_off_the_jax_kernels(speech, calls, monkeypatch,
     """MEC_USE_PALLAS, MEC_PALLAS_TUNING and MEC_PALLAS_ROLLOFF turn off
     the kernels the JAX package's switches turn off, and only those: the
     wrappers one speech dispatch calls, and the one line the engine logs
-    at build."""
+    at build. (The waveform graph: the host audio features, which 'auto'
+    turns on with >= 4 CPUs and g++, are pinned off.)"""
+    monkeypatch.setattr(Config, 'HOST_AUDIO_FEATURES', '0')
     for k, v in flags.items():
         monkeypatch.setattr(Config, k, v)
     monkeypatch.setattr(Config, 'DFT_PRECISION', prec)
@@ -340,26 +342,42 @@ def test_use_pallas_off_is_the_jax_non_pallas_graph(speech, jax_bf16,
 
 
 @pytest.mark.parametrize('value,dtype,cpus,outcome', [
-    ('1', 'bfloat16', 8, 'raises'),
-    ('on', 'bfloat16', 2, 'raises'),
-    ('1', 'float32', 8, 'quiet'),
-    ('auto', 'bfloat16', 8, 'warns'),
-    ('auto', 'bfloat16', 2, 'quiet'),
-    ('auto', 'float32', 8, 'quiet'),
-    ('0', 'bfloat16', 8, 'quiet')])
-def test_host_audio_features(speech, monkeypatch, caplog, value, dtype, cpus,
-                             outcome):
-    """The port has no host featurizer until A15: an explicit on value in
-    bf16 raises naming it; 'auto' resolves to off, with a warning naming
-    A15 where the JAX rule (bf16, >= 4 CPUs) would have turned it on."""
+    ('1', 'bfloat16', 8, 'features'),
+    ('on', 'bfloat16', 2, 'features'),
+    ('1', 'float32', 8, 'waveform'),
+    ('auto', 'bfloat16', 8, 'features'),
+    ('auto', 'bfloat16', 2, 'waveform'),
+    ('auto', 'float32', 8, 'waveform'),
+    ('0', 'bfloat16', 8, 'waveform')])
+def test_host_audio_features(speech, calls, monkeypatch, caplog, value,
+                             dtype, cpus, outcome):
+    """MEC_HOST_AUDIO_FEATURES resolved as the JAX engine resolves it
+    (engine.py:128-146): an explicit on value featurizes in bf16 whatever
+    the CPU count; 'auto' featurizes in bf16 with >= 4 CPUs and the C++
+    featurizer built; fp32 ships the waveform. The engine logs its audio
+    wire once at build; a featurizing dispatch calls the DNN wrapper (K4)
+    and no frontend wrapper."""
+    from mec_tpu_torch.native import featurizer
+    if value == 'auto' and outcome == 'features' \
+            and not featurizer.have_native():
+        pytest.skip("g++ is not on PATH: 'auto' keeps the waveform here")
     monkeypatch.setattr(Config, 'HOST_AUDIO_FEATURES', value)
     monkeypatch.setattr(os, 'cpu_count', lambda: cpus)
-    if outcome == 'raises':
-        with pytest.raises(NotImplementedError, match='item A15'):
-            EmotionEngine(*speech, compute_dtype=dtype, device='cpu')
-        return
-    with caplog.at_level(logging.WARNING, logger='mec_tpu_torch.serving'):
+    with caplog.at_level(logging.INFO, logger='mec_tpu_torch.serving'):
         eng = EmotionEngine(*speech, compute_dtype=dtype, device='cpu')
-    warned = [r for r in caplog.records if 'A15' in r.getMessage()]
-    assert len(warned) == (outcome == 'warns')
-    assert len(eng._wire_waves(_clips(1), 1)[0][0]) != 56   # the waveform
+    said = [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith('speech wire: ')]
+    assert len(said) == 1
+    assert said[0].startswith('speech wire: host features' if outcome ==
+                              'features' else 'speech wire: waveform')
+    assert eng._host_audio == (outcome == 'features')
+    wire_arrays = eng._wire_waves(_clips(1), 1)
+    for k in calls:
+        calls[k] = 0
+    eng.predict_speech_waves(_clips(2))
+    if outcome == 'features':
+        assert [a.shape for a in wire_arrays] == [(1, 56)]
+        assert calls == {**dict.fromkeys(WRAPPERS, 0), 'speech_dnn': 1}
+    else:
+        assert len(wire_arrays[0][0]) != 56                # the waveform
+        assert calls['tuning_select'] == 1

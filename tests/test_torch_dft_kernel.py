@@ -203,12 +203,15 @@ def test_engine_fixes_dft_precision_at_load(monkeypatch):
     """A bf16 engine takes Config.DFT_PRECISION when it is built (as the
     JAX engine at trace time) and its speech step runs that frontend; an
     fp32 engine takes the parity graph whatever the name says; a bad
-    value raises at load of a bf16 engine only."""
+    value raises at load of a bf16 engine only. (The waveform wire: the
+    host audio features, which 'auto' turns on with >= 4 CPUs and g++,
+    are pinned off.)"""
     from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
     from mec_tpu_torch.serving.engine import EmotionEngine
     from mec_tpu_torch.serving.synthetic_artifacts import speech_variables
     tree = speech_variables(seed=1)
     waves = _waves()[:2]
+    monkeypatch.setattr(Config, 'HOST_AUDIO_FEATURES', '0')
     monkeypatch.setattr(Config, 'DFT_PRECISION', 'highest')
     bf16 = EmotionEngine(tree, None, compute_dtype='bfloat16', device='cpu')
     fp32 = EmotionEngine(tree, None, compute_dtype='float32', device='cpu')

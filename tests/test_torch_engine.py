@@ -133,7 +133,9 @@ def test_engine_buckets_and_paths(setup, tmp_path):
 def test_engine_pcm16_wire_when_compression_off(setup, monkeypatch):
     """The wire follows the compute mode (JAX engine.py:971-998): bf16
     ships 12-bit PCM, or PCM16 with MEC_WIRE_COMPRESS=0; fp32 ships
-    float32 either way."""
+    float32 either way. (The waveform wire: the host audio features,
+    which 'auto' turns on with >= 4 CPUs and g++, are pinned off.)"""
+    monkeypatch.setattr(Config, 'HOST_AUDIO_FEATURES', '0')
     port16 = EmotionEngine(setup['tree'], setup['scaler'],
                            compute_dtype='bfloat16', device='cpu')
     waves = setup['waves'][:2]

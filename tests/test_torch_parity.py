@@ -31,6 +31,7 @@ import torch
 from mec_tpu.convert import store
 from mec_tpu.ops import audio_features as jaf
 from mec_tpu.serving.engine import EmotionEngine as JaxEngine
+from mec_tpu_torch.config import Config
 from mec_tpu_torch.models.speech_dnn import SpeechDNN
 from mec_tpu_torch.ops import audio_features as taf
 from mec_tpu_torch.ops import (dft_kernel, rolloff_kernel, speech_kernels,
@@ -343,12 +344,14 @@ def test_fp32_engine_matches_jax_engine_with_strong_batchnorm(engines, batch):
     assert len({g['emotion'] for g in got}) > 1
 
 
-def test_bf16_engine_keeps_the_serving_graph(engines, batch):
+def test_bf16_engine_keeps_the_serving_graph(engines, batch, monkeypatch):
     """bf16 mode is untouched: the pcm12 wire, the hop-slab frontend with
     the kernels' plain versions, the BN-folded fused forward. With this
     tree the folded forward and the live-BN module differ visibly less
     than the serving tolerances but more than rounding: the two modes are
-    two graphs."""
+    two graphs. (The waveform wire: the host audio features, which 'auto'
+    turns on with >= 4 CPUs and g++, are pinned off.)"""
+    monkeypatch.setattr(Config, 'HOST_AUDIO_FEATURES', '0')
     tree, scaler = engines['tree'], engines['scaler']
     bf16 = EmotionEngine(tree, scaler, compute_dtype='bfloat16', device='cpu')
     assert bf16._dft_precision == 'high'
