@@ -248,6 +248,20 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               image step (bf16 int8, fp32) and the rf tri-modal step (with
               busy share and ops) at B=1, 8, 32, the forest walk and one
               depthwise conv at B=32, and from_models_dir's host wall
+  7b. roofline the port's roofline and trace helpers
+              (mec_tpu_torch/utils/roofline.py, profiling.device_trace)
+              and the engine's batch-1 phase clock: (a) measure_hbm_gbps
+              on the card, within RATE_BAND of the data sheet's 3.35
+              TB/s; (b) chain_slope_ms of each kernel wrapper at phase 7's
+              B=32 shapes (K5 in both precisions), captured into CUDA
+              graphs (a wrapper that cannot be captured fails), at least
+              CHAIN_FLOOR of phase 7's device_ms; (c) hbm_traffic_bytes of
+              the bf16 tri-modal b32 step over phase 7's step time, at
+              most TRAFFIC_CAP of (a)'s rate; (d) device_trace around 6
+              tri-modal b1 requests of phase 6's engine, whose trace must
+              name the __global__ functions of K1-K4, K6 and K7; (e) 20
+              predict_multimodal b1 calls, _last_b1_phases' medians
+              summing to the median wall within max(1 ms, 15%)
   8. report   the card's name and power limit; a JSON line of the seven
               kernels (name, route, source, replaces, launches and
               launches on the tri-modal paths (launches_by_path: the
@@ -258,9 +272,9 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               and entry_launches_per_dispatch, max_abs_err,
               ms by events, device_ms, plain_ms, bound_ms, bound_by 'bytes' or 'operations',
               bound_peak 'memory', 'fp32', 'bf16_tc' or 'int8_tc',
-              library_ms or null; K5's row is the 'highest' precision
-              and carries the 'bf16' one under bf16_* keys); then the
-              contract line last:
+              library_ms or null, chain_ms (7b); K5's row is the
+              'highest' precision and carries the 'bf16' one under bf16_*
+              keys); then the contract line last:
               {"ok": true, "device": {"platform": "gpu", ...}}
 """
 
@@ -554,13 +568,6 @@ def profile_step(fn, steps=10):
     return wall, busy, busy / wall, len(kern) / steps, top
 
 
-# NVIDIA's data-sheet peaks of the H100 SXM (dense, at the 700 W limit):
-# device memory bytes/s, fp32 FLOP/s outside the tensor cores, bf16
-# tensor-core FLOP/s, int8 tensor-core OP/s
-PEAKS = {'memory': 3.35e12, 'fp32': 67e12, 'bf16_tc': 989e12,
-         'int8_tc': 1979e12}
-
-
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -569,7 +576,9 @@ def bound(moved, ops, unit):
     """The least time (ms) the card could take: the larger of the bytes
     moved (each input read once, each output written once) over the
     memory rate and the operations over the peak rate of their unit.
-    Returns (ms, 'bytes' or 'operations', the peak that binds)."""
+    Returns (ms, 'bytes' or 'operations', the peak that binds): PEAKS of
+    mec_tpu_torch/utils/roofline.py, the H100 SXM data sheet's."""
+    from mec_tpu_torch.utils.roofline import PEAKS
     t_bytes = moved / PEAKS['memory'] * 1e3
     t_ops = ops / PEAKS[unit] * 1e3
     if t_bytes >= t_ops:
@@ -2538,6 +2547,143 @@ def host_phase(card, wrappers, speech_tree, scaler, tri_engine, bert_meta,
     return counts, {'speech': 6, 'trimodal': dispatches}
 
 
+# ----------------------------------------------------------------------
+# phase 7b: the roofline and trace helpers (mec_tpu_torch/utils/)
+# ----------------------------------------------------------------------
+# the __global__ functions each kernel of the tri-modal b1 dispatch
+# launches, as the trace must name them
+TRACE_KERNELS = {'mfcc_mean': ('mfcc_mean_kernel',),
+                 'tuning_select': ('tuning_select_kernel',),
+                 'rolloff_bins': ('rolloff_bins_kernel',),
+                 'speech_dnn': ('speech_dnn_kernel',),
+                 'max_pool_3x3s2': ('max_pool_3x3s2_kernel',),
+                 'layer1': ('conv1x1_in_kernel', 'conv3x3_kernel',
+                            'conv256_kernel')}
+# measure_hbm_gbps against the data sheet's 3.35 TB/s: below half, the
+# probe measured something else; above 1.05, an impossible reading
+RATE_BAND = (0.5, 1.05)
+# a graph chain may beat phase 7's device_ms (its inputs stay in the
+# 50 MB L2 across calls), but not by this much: below it the chain
+# skipped work
+CHAIN_FLOOR = 0.3
+# the tri-modal step's modelled bytes over its time against the measured
+# rate: above this the reading is impossible (JAX's guard, bench.py)
+TRAFFIC_CAP = 1.05
+# the phase clock's medians must sum to the median wall within
+# max(1 ms, 15%) (tests/test_bench_contract.py:170-174)
+PHASE_SUM_MS, PHASE_SUM_SHARE = 1.0, 0.15
+B1_PHASES = ('wav_load', 'tokenize', 'image_load', 'wire_encode',
+             'dispatch_fetch', 'result_unpack')
+
+
+def roofline_phase(card, timed, times, eng, request, step_b32, wires_b32):
+    """Phase 7b: (a) measure_hbm_gbps on the card; (b) chain_slope_ms of
+    each kernel wrapper of phase 7 (`timed`: K1-K7, K5 in both
+    precisions) captured into CUDA graphs, beside phase 7's device_ms
+    (`times`); (c) hbm_traffic_bytes of the bf16 tri-modal b32 step
+    (`eng`, on `wires_b32`) over phase 7's step time `step_b32`; (d)
+    device_trace around tri-modal b1 requests, which must name the
+    kernels' __global__ functions; (e) the engine's batch-1 phase clock
+    over 20 predict_multimodal calls of `request`. Returns each kernel's
+    chain_ms."""
+    import torch
+    from mec_tpu_torch.utils import roofline
+    from mec_tpu_torch.utils.profiling import device_trace
+    t_phase = time.perf_counter()
+
+    # (a) the memory rate
+    gbps = roofline.measure_hbm_gbps()
+    rate_share = gbps * 1e9 / roofline.PEAKS['memory']
+    print(f'roofline: measure_hbm_gbps {gbps:.1f} GB/s (10^9 B/s; x.sum() '
+          f'over 256 MiB of fp32, slope of CUDA-graph chains of 40 and 160)'
+          f' = {rate_share:.3f} of the data sheet\'s 3.35 TB/s; {card}')
+    check(RATE_BAND[0] <= rate_share <= RATE_BAND[1],
+          f'measured memory rate {gbps:.1f} GB/s is {rate_share:.3f} of the '
+          f'data sheet, outside {RATE_BAND}')
+
+    # (b) each wrapper captured into a graph chain
+    chains = {}
+    with torch.inference_mode():
+        for name, (kern, _plain) in timed.items():
+            try:
+                ms = roofline.chain_slope_ms(lambda eps, kern=kern: kern())
+            except RuntimeError as e:
+                fail(f'{name}: chain_slope_ms failed (the wrapper cannot '
+                     f'be captured into a CUDA graph?): {e}')
+            chains[name] = ms
+            dev_ms = times[name][3]
+            ratio = None if dev_ms is None else ms / dev_ms
+            print(f'chain {name:22s} B=32: {ms:.4f} ms a call (CUDA-graph '
+                  f'chains of 40 and 160), device_ms {fmt_ms(dev_ms)}, chain '
+                  f'/ device ' + ('not measured' if ratio is None
+                                  else f'{ratio:.3f}')
+                  + f', event ms {times[name][0]:.4f}; {card}')
+            check(ms > 1e-6, f'{name}: the chain\'s slope is not positive')
+            check(ratio is None or ratio >= CHAIN_FLOOR,
+                  f'{name}: chain {ms:.4f} ms is {ratio:.3f} of device_ms '
+                  f'{dev_ms:.4f} (< {CHAIN_FLOOR}): the chain skipped work')
+
+    # (c) the tri-modal b32 step's traffic against the measured rate
+    tr = roofline.hbm_traffic_bytes(eng._trimodal_forward, *wires_b32)
+    implied = tr['model_bytes'] / (step_b32 * 1e-3)
+    traffic_share = implied / (gbps * 1e9)
+    print(f'traffic trimodal bf16 B=32: model {tr["model_bytes"] / 1e6:.1f} '
+          f'MB (args {tr["arg_bytes"] / 1e6:.1f}, out '
+          f'{tr["out_bytes"] / 1e3:.1f} kB, temp {tr["temp_bytes"] / 1e6:.1f}'
+          f'), logical {tr["logical_bytes"] / 1e6:.1f} MB, '
+          f'{tr["flops"] / 1e9:.2f} GFLOP counted (the ctypes kernels '
+          f'unseen); over the {step_b32:.4f} ms step '
+          f'{implied / 1e9:.1f} GB/s = {traffic_share:.3f} of the measured '
+          f'rate; {card}')
+    check(traffic_share <= TRAFFIC_CAP,
+          f'tri-modal b32: {traffic_share:.3f} of the measured rate > '
+          f'{TRAFFIC_CAP}: an impossible reading')
+
+    # (d) a trace of tri-modal b1 requests (the first warms the window)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trace_') as d:
+        with device_trace(d):
+            for _ in range(6):
+                eng.predict_multimodal(**request)
+            torch.cuda.synchronize()
+        files = [os.path.join(d, f) for f in os.listdir(d)]
+        check(len(files) == 1 and files[0].endswith('.pt.trace.json'),
+              f'device_trace wrote {os.listdir(d)}')
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f).get('traceEvents', [])
+    kernels = [e.get('name', '') for e in events
+               if str(e.get('cat', '')).lower() == 'kernel']
+    missing = [fn for fns in TRACE_KERNELS.values() for fn in fns
+               if not any(fn in k for k in kernels)]
+    print(f'trace: device_trace around 6 tri-modal b1 requests wrote '
+          f'{size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} '
+          f'kernel events; ' + ', '.join(
+              f'{fn} {sum(fn in k for k in kernels)}'
+              for fns in TRACE_KERNELS.values() for fn in fns) + f'; {card}')
+    check(not missing, f'the trace names no kernel event of {missing}')
+
+    # (e) the batch-1 phase clock
+    walls, phases = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.predict_multimodal(**request)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        phases.append(dict(eng._last_b1_phases))
+    check(all(tuple(p) == B1_PHASES for p in phases),
+          f'_last_b1_phases keys {sorted(phases[-1])}')
+    med = {k: statistics.median(p[k] for p in phases) for k in B1_PHASES}
+    total, wall = sum(med.values()), statistics.median(walls)
+    print('phases predict_multimodal b1 (medians of 20, ms): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in med.items())
+          + f'; sum {total:.3f} against the median wall {wall:.3f} (min '
+          f'{min(walls):.3f}); {card}')
+    check(abs(total - wall) <= max(PHASE_SUM_MS, PHASE_SUM_SHARE * wall),
+          f'b1 phases sum to {total:.3f} ms against a {wall:.3f} ms wall')
+    print(f'roofline phase wall: {time.perf_counter() - t_phase:.1f} s; '
+          f'{card}')
+    return chains
+
+
 def main():
     t_start = time.perf_counter()
     # the phases before 6g drive the waveform wire (K1-K3 once a bf16
@@ -3484,7 +3630,7 @@ def main():
               f'call, torch.profiler), plain {times[name][1]:.4f} ms, '
               f'library call {lib_ms} (medians of {REPS} runs; {card})')
 
-    # the bounds, from the shapes just timed (data-sheet peaks, PEAKS)
+    # the bounds, from the shapes just timed (data-sheet peaks, bound())
     Bt, T, _ = P.shape
     mel = speech_kernels._mel_tables(P.device)[0]
     convs = resnet_kernel._convs(blocks)
@@ -3565,10 +3711,12 @@ def main():
                   f'host wall {statistics.median(host):.2f} ms (median of 10,'
                   f' incl. wire encode + copies); {card}')
 
+    tri_step = {}
     for prec, eng in tri.items():
         for B in (1, 8, 32):
             args = tri_wires(eng, B, (TEXTS * 4)[:B])
             step = cuda_ms(lambda: eng._trimodal_forward(*args), reps=20)
+            tri_step[prec, B] = step
             print(f'time trimodal device step {prec:7s} B={B:2d} seq '
                   f'{args[1].shape[1]}: {step:.4f} ms (CUDA events, wire '
                   f'already on the card); {card}')
@@ -3600,6 +3748,11 @@ def main():
               f'busy share {share:.3f}, {ops:.0f} device ops/step; {card}')
         for name, ms in top:
             print(f'  {ms:8.4f} ms  {name}')
+
+    # ------------------------------------------------------- 7b roofline
+    chains = roofline_phase(card, timed, times, tri['high'], requests[0],
+                            tri_step['high', 32], tri_wires(
+                                tri['high'], 32, (TEXTS * 4)[:32]))
     tmp.cleanup()
     models_tmp.cleanup()
 
@@ -3651,11 +3804,13 @@ def main():
              'max_abs_err': errs[name], 'ms': ms, 'device_ms': dev_ms,
              'plain_ms': plain_ms,
              'bound_ms': b_ms, 'bound_by': b_by, 'bound_peak': b_peak,
-             'share': bound_share(b_ms, dev_ms), 'library_ms': lib_ms}
+             'share': bound_share(b_ms, dev_ms), 'library_ms': lib_ms,
+             'chain_ms': chains[name]}
         if name == 'dft_spectrograms':
             ms, plain_ms, lib_ms, dev_ms = times[name + '[bf16]']
             b_ms, b_by, b_peak = bounds[name + '[bf16]']
             e.update(bf16_ms=ms, bf16_device_ms=dev_ms,
+                     bf16_chain_ms=chains[name + '[bf16]'],
                      bf16_plain_ms=plain_ms, bf16_bound_ms=b_ms,
                      bf16_bound_by=b_by, bf16_bound_peak=b_peak,
                      bf16_share=bound_share(b_ms, dev_ms),

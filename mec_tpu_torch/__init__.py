@@ -44,7 +44,16 @@ What is ported so far:
   sequence, expert and pipeline axes;
 * the reference's own artifacts (Keras .h5, torch .pt, sklearn .pkl,
   HF BERT directories) converted at load or by `python -m mec_tpu_torch
-  convert`, and the web service: `python -m mec_tpu_torch serve`.
+  convert`, and the web service: `python -m mec_tpu_torch serve`;
+* the native host runtime (native/: C++ wire encoders, WordPiece and
+  the host audio featurizer) and the preprocessing facade;
+* the measuring tools (utils/roofline.py: H100 peaks, CUDA-graph chain
+  timers, the measured memory rate, a traffic model; device_trace; the
+  engine's batch-1 phase clock) and the dataset commands (datasets/:
+  `python -m mec_tpu_torch download|organize`).
+
+With these the port does what mec_tpu does; what it leaves out on
+purpose (the TPU's workarounds) is listed in ROADMAP.md.
 
 All seven TPU Pallas kernels are rewritten as CUDA C++ kernels for
 sm_90a (csrc/, built at first use by ops/_build.py): K1 mfcc_mean, K2
@@ -79,9 +88,14 @@ Package layout:
               sessions, rate limiter and serve CLI
   database/   sqlite3 (or PyMySQL) users, predictions, statistics and
               model metrics
-  utils/      StageTimer, rotating-file logging, input validation
+  utils/      StageTimer, device_trace, the roofline helpers,
+              rotating-file logging, input validation
+  datasets/   the Kaggle download and the raw-dataset organizers
+  native/     the C++ host libraries (g++ at first use) and their
+              bindings
+  preprocessing/  the reference's preprocessing facade
   __main__    python -m mec_tpu_torch: the train commands, serve,
-              convert
+              convert, download, organize
 """
 
 import torch

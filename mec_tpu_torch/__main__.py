@@ -11,9 +11,8 @@ above 1) runs in N = D*M*P ranks, one process a device
 --device cpu; fewer visible GPUs than N raises), unless this process is
 already one rank of a group (torchrun's or the MEC_* variables,
 parallel/distributed.py), in which case it initializes that group and
-runs its own rank. The JAX package's
-other commands are not ported yet, and the dispatcher names the
-ROADMAP.md queue A item that holds each.
+runs its own rank. download and organize are the dataset tools
+(datasets/), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,21 +41,17 @@ _COMMANDS = {
               'run the web service (werkzeug; --device cuda by default)'),
     'convert': ('mec_tpu_torch.convert.__main__',
                 'convert reference checkpoints (.h5/.pt/.pkl/HF) to .mecp'),
-}
-
-# the JAX package's commands that are not ported, with their queue item
-_NOT_PORTED = {
-    'download': 'A13 (no device work; run python -m mec_tpu download)',
-    'organize': 'A13 (no device work; run python -m mec_tpu organize)',
+    'download': ('mec_tpu_torch.datasets.download',
+                 'download the Emotions-NLP dataset via Kaggle'),
+    'organize': ('mec_tpu_torch.datasets.organize',
+                 'reorganize TESS / FER2013 / Emotions-NLP layouts'),
 }
 
 
 def _usage() -> str:
-    width = max(len(name) for name in list(_COMMANDS) + list(_NOT_PORTED))
+    width = max(len(name) for name in _COMMANDS)
     lines = [f'  {name:<{width}}  {help_}'
              for name, (_mod, help_) in _COMMANDS.items()]
-    lines += [f'  {name:<{width}}  not ported yet: ROADMAP.md queue A '
-              f'item {item}' for name, item in _NOT_PORTED.items()]
     return ('usage: python -m mec_tpu_torch <command> [args...]\n\n'
             'commands:\n' + '\n'.join(lines) +
             "\n\nRun 'python -m mec_tpu_torch <command> --help' for that "
@@ -76,10 +71,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__version__)
         return 0
     cmd = argv[0]
-    if cmd in _NOT_PORTED:
-        print(f'mec_tpu_torch: {cmd!r} is not ported yet: ROADMAP.md queue '
-              f'A item {_NOT_PORTED[cmd]}', file=sys.stderr)
-        return 2
     entry = _COMMANDS.get(cmd)
     if entry is None:
         close = [n for n in _COMMANDS if n.startswith(cmd.split('-')[0])]

@@ -1,11 +1,12 @@
 """Image preprocessing for the ResNet50 path.
 
-A copy of the part of mec_tpu/image/preprocess.py that serving reads
-(importing mec_tpu imports jax). The reference serving transform is
-torchvision Resize((224,224)) -> ToTensor -> Normalize(ImageNet); PIL's
-bilinear resize is what torchvision's Resize does on PIL inputs. The
+A copy of mec_tpu/image/preprocess.py (importing mec_tpu imports jax).
+The reference serving transform is torchvision Resize((224,224)) ->
+ToTensor -> Normalize(ImageNet); PIL's bilinear resize is what
+torchvision's Resize does on PIL inputs. The
 /255 and mean/std normalization run on the device inside the engine's
-image forward, so the host ships uint8 pixels. PIL is imported only
+image forward, so the host ships uint8 pixels; normalize_uint8 and
+load_image_for_model are the host-side variant. PIL is imported only
 when a file is decoded: the serving forward itself needs no PIL.
 """
 
@@ -26,3 +27,16 @@ def load_image_uint8(path_or_file, size: Tuple[int, int] = (224, 224)
     img = Image.open(path_or_file).convert('RGB')
     img = img.resize((size[1], size[0]), Image.BILINEAR)
     return np.asarray(img, dtype=np.uint8)
+
+
+def normalize_uint8(img: np.ndarray) -> np.ndarray:
+    """uint8 (…, H, W, 3) -> normalized float32 (host-side variant)."""
+    x = img.astype(np.float32) / 255.0
+    return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def load_image_for_model(path_or_file, size: Tuple[int, int] = (224, 224),
+                         normalized: bool = True) -> np.ndarray:
+    """-> (H, W, 3) float32 NHWC, ImageNet-normalized (or raw uint8)."""
+    img = load_image_uint8(path_or_file, size)
+    return normalize_uint8(img) if normalized else img

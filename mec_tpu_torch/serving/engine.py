@@ -439,6 +439,9 @@ class EmotionEngine:
         self._bert_native_path = paths.get('bert')
         self._decode_pool = None
         self._decode_pool_lock = threading.Lock()
+        # the last fused batch-1 request's phases (ms), written by
+        # _predict_trimodal_fused (JAX engine.py:181)
+        self._last_b1_phases: Dict[str, float] = {}
         if speech_variables is not None:
             if scaler is None:
                 scaler = (np.zeros(N_FEATURES, np.float32),
@@ -1285,22 +1288,48 @@ class EmotionEngine:
                                 image_path: str) -> Dict[str, Dict]:
         """One device step for a full tri-modal request. An undecodable
         upload takes the fallback ladder (_predict_degraded: the same
-        dicts the JAX engine's per-modality path gives it); the device
-        step itself is not guarded."""
+        dicts the JAX engine's per-modality path gives it) and leaves
+        _last_b1_phases empty; the device step itself is not guarded.
+
+        Every phase is timed in this call and kept in _last_b1_phases
+        (ms; the JAX engine's keys, engine.py:1263-1328), so that the
+        phases of one request sum to its wall: wav_load, tokenize
+        (WordPiece and the sequence bucket), image_load, wire_encode (the
+        audio wire, the text rows' padding, the image wire), dispatch_fetch
+        (_run: copies in, the device step, the packed row back) and
+        result_unpack."""
+        self._last_b1_phases = {}
         request = {'text': text, 'image_path': image_path}
+        pc = time.perf_counter
+        t0 = pc()
         try:
             wave = wav.load_and_fix_length(audio_path)[0]
         except Exception as e:  # degrade-don't-fail
             log.warning('audio decode failed for %s: %s', audio_path, e)
             return self._predict_degraded(request, audio_failed=True)
+        t1 = pc()
+        ids, mask = self._seq_slice(*self.bert_tokenizer.encode_batch(
+            [text], Config.MAX_TEXT_LENGTH))
+        t2 = pc()
         try:
             img = load_image_uint8(image_path, self._image_size)
         except Exception as e:  # degrade-don't-fail
             log.warning('image decode failed: %s', e)
             return self._predict_degraded(request, wave=wave,
                                           image_failed=True)
-        return self._trimodal_result(
-            self._run_trimodal(wave[None], [text], img[None])[0])
+        t3 = pc()
+        b = self._bucket(1)
+        args = (self._wire_waves(wave[None], b), _pad_rows(ids, b),
+                _pad_rows(mask, b), self._wire_image(img[None], b))
+        t4 = pc()
+        row = self._run('_trimodal_forward', *args)[0]
+        t5 = pc()
+        out = self._trimodal_result(row)
+        phases = {'wav_load': t1 - t0, 'tokenize': t2 - t1,
+                  'image_load': t3 - t2, 'wire_encode': t4 - t3,
+                  'dispatch_fetch': t5 - t4, 'result_unpack': pc() - t5}
+        self._last_b1_phases = {k: v * 1e3 for k, v in phases.items()}
+        return out
 
     def predecode_multimodal(self, request: Dict) -> Dict:
         """Decode a tri-modal request's uploads in the caller's thread

@@ -1,17 +1,21 @@
-"""Serving-loop stage timing: the StageTimer the batcher records into.
+"""Serving-loop stage timing and the device trace.
 
 A copy of mec_tpu/utils/profiling.py's StageTimer and process-wide
 `timer` (that module cannot be imported here: importing mec_tpu imports
-jax). Per-stage wall-clock spans aggregated into percentile summaries.
+jax): per-stage wall-clock spans aggregated into percentile summaries.
+`device_trace` is the counterpart of its jax.profiler trace, on
+torch.profiler.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 
 class StageTimer:
@@ -63,3 +67,24 @@ class StageTimer:
 
 
 timer = StageTimer()  # process-wide default
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None) -> Iterator[object]:
+    """torch.profiler trace of the block, written into log_dir (default
+    <temp dir>/mec_trace, the JAX package's /tmp/mec_trace) as
+    TensorBoard's profiler plugin and Perfetto read it
+    (tensorboard_trace_handler: <host>_<pid>.<ms>.pt.trace.json). CPU
+    activities always, CUDA activities (the kernels, with their device
+    times) when a card is present. Yields the profile object."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), 'mec_trace')
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

@@ -6,6 +6,7 @@ Tolerances, each with its reason:
 
 * YUV 4:2:0 encode: equal (a numpy copy); decode: 1e-4 (f32 arithmetic
   in two frameworks, values in [0, 255]);
+* image decode and the host-side normalize helpers: equal (numpy copies);
 * fold and quantize: identical trees (numpy copies);
 * QuantConv (1x1, 3x3 stride 2, 1x1 stride 2 downsample; dynamic and
   static): bit-exact, since both divide, round half to even, sum
@@ -107,6 +108,21 @@ def test_preprocess_copy_matches_original(tmp_path):
     Image.fromarray(_imgs(1, 40)[0]).save(path)
     np.testing.assert_array_equal(tpre.load_image_uint8(path, (24, 32)),
                                   jpre.load_image_uint8(path, (24, 32)))
+
+
+@pytest.mark.parametrize('normalized', [True, False])
+def test_host_normalize_helpers_match_original(tmp_path, normalized):
+    """normalize_uint8 and load_image_for_model are numpy copies: equal."""
+    from PIL import Image
+    img = _imgs(2, 40)
+    np.testing.assert_array_equal(tpre.normalize_uint8(img),
+                                  jpre.normalize_uint8(img))
+    path = str(tmp_path / 'a.png')
+    Image.fromarray(img[1]).save(path)
+    got = tpre.load_image_for_model(path, (24, 32), normalized=normalized)
+    want = jpre.load_image_for_model(path, (24, 32), normalized=normalized)
+    assert got.dtype == want.dtype and got.shape == (24, 32, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_fold_and_quantize_copies_give_identical_trees(trees):

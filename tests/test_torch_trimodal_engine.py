@@ -22,14 +22,17 @@ Tolerances, each with its reason:
   exact 0.9/0.1 splits; the live modalities within 1e-4).
 
 Also here: the web app's text and multimodal routes through
-create_app(engine=port), warmup over the sequence buckets, and the
-batcher's text and multimodal lanes.
+create_app(engine=port), warmup over the sequence buckets, the
+batcher's text and multimodal lanes, and the batch-1 phase clock
+(_last_b1_phases: the JAX engine's keys, phases summing to the call's
+wall within max(1 ms, 15%), empty after a degraded request).
 """
 
 import io
 import json
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -224,6 +227,52 @@ def test_degraded_ladder_matches_jax(setup):
     assert pre.get('wave') is not None and pre.get('image') is None
     _assert_same(s['port32'].predict_multimodal_batch([pre])[0], ref[1],
                  1e-4)
+
+
+@pytest.mark.parametrize('mode', ['32', '16'])
+def test_b1_phase_clock_has_the_jax_keys(setup, mode):
+    """_last_b1_phases starts empty and, after one fused request, holds
+    the JAX engine's (non-streaming) phase keys for the same request."""
+    port, ref = setup['port' + mode], setup['jax' + mode]
+    assert EmotionEngine(device='cpu')._last_b1_phases == {}
+    req = _requests(setup, 1)[0]
+    ref.predict_multimodal(**req)
+    port.predict_multimodal(**req)
+    assert set(port._last_b1_phases) == set(ref._last_b1_phases) == {
+        'wav_load', 'tokenize', 'image_load', 'wire_encode',
+        'dispatch_fetch', 'result_unpack'}
+    assert all(v >= 0 for v in port._last_b1_phases.values())
+
+
+@pytest.mark.parametrize('mode', ['32', '16'])
+def test_b1_phases_sum_to_the_wall(setup, mode):
+    """The phases are timed in the call itself, so they add up to its
+    wall within max(1 ms, 15%) (tests/test_bench_contract.py's bound for
+    bench.py's decomposition of the JAX engine's)."""
+    port = setup['port' + mode]
+    for req in _requests(setup, 2):
+        t0 = time.perf_counter()
+        port.predict_multimodal(**req)
+        wall = (time.perf_counter() - t0) * 1e3
+        total = sum(port._last_b1_phases.values())
+        assert abs(total - wall) <= max(1.0, 0.15 * wall), \
+            (total, wall, port._last_b1_phases)
+
+
+def test_degraded_request_leaves_no_b1_phases(setup):
+    """A request that takes the fallback ladder clears the previous
+    request's phases instead of leaving them in place."""
+    s = setup
+    port = s['port32']
+    bad = [{'audio_path': s['bad_wav'], 'text': TEXTS[0],
+            'image_path': s['pngs'][0]},
+           {'audio_path': s['wavs'][1], 'text': TEXTS[1],
+            'image_path': s['bad_png']}]
+    for req in bad:
+        port.predict_multimodal(**_requests(s, 1)[0])
+        assert port._last_b1_phases
+        port.predict_multimodal(**req)
+        assert port._last_b1_phases == {}
 
 
 def test_missing_bert_serves_the_keyword_heuristic(setup):
