@@ -104,6 +104,24 @@ without g++), and the speech step standardizes them and runs the DNN
 launched. The engine logs at build which audio wire it chose and why.
 The wire encoders (12-bit PCM, YUV 4:2:0) and the WordPiece tokenizer
 run the C++ loops of native/ where g++ is found, as in JAX.
+
+The engine times its own phases on the process-wide StageTimer
+(utils/profiling.py; /api/metrics shows them, and with the timer's log
+on each is kept with its interval, thread and parent):
+  request.decode (.speech, .image)   predecode_multimodal, in the
+                                     request's thread
+  trimodal.dispatch                  a tri-modal dispatch: the whole of
+                                     predict_multimodal_batch, or of a
+                                     fused batch-1 request
+    trimodal.decode_stage_ms         the batch's remaining decodes
+    trimodal.wire_encode (.speech, .text, .image)
+                                     the three wires, row-padded
+    trimodal.dispatch_fetch          _run alone
+    trimodal.result_unpack           result dicts and the degraded ladder
+  step.h2d, step.launch, step.fetch  every _run: the copies in, the step
+                                     method's launches (in the tri-modal
+                                     step: .speech, .text, .image,
+                                     .fusion), the rows back
 """
 
 from __future__ import annotations
@@ -689,9 +707,10 @@ class EmotionEngine:
         """Device step `step` (a method name) over the replicas: each
         argument is a host array or a tuple of them (a wire), every one
         with the bucket's rows leading. Replica r takes the r-th
-        contiguous block of rows on its device; every block is launched
-        before any is fetched, and the packed outputs come back
-        concatenated in row order, as numpy."""
+        contiguous block of rows on its device; every block is copied in
+        before any is launched and launched before any is fetched (the
+        spans step.h2d, step.launch, step.fetch), and the packed outputs
+        come back concatenated in row order, as numpy."""
         d = len(self.replicas)
         rows = (args[0][0] if isinstance(args[0], tuple) else args[0]).shape[0]
         per = rows // d
@@ -702,9 +721,13 @@ class EmotionEngine:
                     x[r * per:(r + 1) * per] for x in a)
             return self.replicas[r]._to_device((a[r * per:(r + 1) * per],))[0]
 
-        outs = [getattr(rep, step)(*(block(a, r) for a in args))
-                for r, rep in enumerate(self.replicas)]
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        with stage_timer.span('step.h2d', step=step):
+            ins = [[block(a, r) for a in args] for r in range(d)]
+        with stage_timer.span('step.launch', step=step):
+            outs = [getattr(rep, step)(*x)
+                    for rep, x in zip(self.replicas, ins)]
+        with stage_timer.span('step.fetch', step=step):
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
     @property
     def _compress(self) -> bool:
@@ -1234,26 +1257,43 @@ class EmotionEngine:
         (bucket, 34) [s 7 | t 7 | i 7 | fusion 7 | attn 3 | decision 3],
         or in rf mode (bucket, 28) [s 7 | t 7 | i 7 | forest 7]."""
         n = len(EMOTIONS)
-        s = self._speech_forward(w_wire)
-        t = self._text_forward(ids, mask)
-        im = self._image_forward(i_wire)
-        if self._fusion_kind == 'rf':
-            f = self._forest_forward(s[:, :n], t[:, :n], im[:, :n])
-        else:
-            f = self._fusion_forward(s[:, n:], t[:, n:], im[:, n:],
-                                     s[:, :n], t[:, :n], im[:, :n])
-        return torch.cat([s[:, :n], t[:, :n], im[:, :n], f], dim=-1)
+        with stage_timer.span('step.launch.speech'):
+            s = self._speech_forward(w_wire)
+        with stage_timer.span('step.launch.text'):
+            t = self._text_forward(ids, mask)
+        with stage_timer.span('step.launch.image'):
+            im = self._image_forward(i_wire)
+        with stage_timer.span('step.launch.fusion'):
+            if self._fusion_kind == 'rf':
+                f = self._forest_forward(s[:, :n], t[:, :n], im[:, :n])
+            else:
+                f = self._fusion_forward(s[:, n:], t[:, n:], im[:, n:],
+                                         s[:, :n], t[:, :n], im[:, :n])
+            return torch.cat([s[:, :n], t[:, :n], im[:, :n], f], dim=-1)
 
-    def _run_trimodal(self, waves: np.ndarray, texts: Sequence[str],
-                      imgs: np.ndarray) -> np.ndarray:
+    def _trimodal_wire(self, waves, texts: Sequence[str], imgs, b: int):
+        """The tri-modal step's arguments, row-padded to bucket b, under
+        trimodal.wire_encode: the audio wire (.speech), WordPiece, the
+        sequence bucket and padding (.text), the image wire (.image).
+        waves and imgs are arrays or lists of rows (stacked here)."""
+        span = stage_timer.span
+        with span('trimodal.wire_encode'):
+            with span('trimodal.wire_encode.speech'):
+                w_wire = self._wire_waves(np.asarray(waves), b)
+            with span('trimodal.wire_encode.text'):
+                ids, mask = self._text_wire(texts, b)
+            with span('trimodal.wire_encode.image'):
+                i_wire = self._wire_image(np.asarray(imgs), b)
+        return w_wire, ids, mask, i_wire
+
+    def _run_trimodal(self, waves, texts: Sequence[str], imgs) -> np.ndarray:
         """Host side of one tri-modal dispatch: (n, 66150) waves, n
-        texts, (n, H, W, 3) uint8 -> the packed (n, 34) rows ((n, 28)
-        in rf mode)."""
+        texts, (n, H, W, 3) uint8 (arrays or lists of rows) -> the packed
+        (n, 34) rows ((n, 28) in rf mode)."""
         n = len(texts)
-        b = self._bucket(n)
-        return self._run('_trimodal_forward', self._wire_waves(waves, b),
-                         *self._text_wire(texts, b),
-                         self._wire_image(imgs, b))[:n]
+        args = self._trimodal_wire(waves, texts, imgs, self._bucket(n))
+        with stage_timer.span('trimodal.dispatch_fetch'):
+            return self._run('_trimodal_forward', *args)[:n]
 
     def _trimodal_result(self, row: np.ndarray) -> Dict[str, Dict]:
         return {'speech': result_dict(row[:7]),
@@ -1291,44 +1331,58 @@ class EmotionEngine:
         dicts the JAX engine's per-modality path gives it) and leaves
         _last_b1_phases empty; the device step itself is not guarded.
 
-        Every phase is timed in this call and kept in _last_b1_phases
-        (ms; the JAX engine's keys, engine.py:1263-1328), so that the
-        phases of one request sum to its wall: wav_load, tokenize
-        (WordPiece and the sequence bucket), image_load, wire_encode (the
-        audio wire, the text rows' padding, the image wire), dispatch_fetch
-        (_run: copies in, the device step, the packed row back) and
-        result_unpack."""
+        It records the batch path's spans (its decode as
+        request.decode), and _last_b1_phases (ms; the JAX engine's keys,
+        engine.py:1263-1328) is read off them, so that the phases of one
+        request sum to its wall: wav_load, tokenize (WordPiece and the
+        sequence bucket), image_load, wire_encode (the audio wire, the
+        text rows' padding, the image wire), dispatch_fetch (_run: copies
+        in, the device step, the packed row back) and result_unpack."""
         self._last_b1_phases = {}
         request = {'text': text, 'image_path': image_path}
-        pc = time.perf_counter
-        t0 = pc()
-        try:
-            wave = wav.load_and_fix_length(audio_path)[0]
-        except Exception as e:  # degrade-don't-fail
-            log.warning('audio decode failed for %s: %s', audio_path, e)
-            return self._predict_degraded(request, audio_failed=True)
-        t1 = pc()
-        ids, mask = self._seq_slice(*self.bert_tokenizer.encode_batch(
-            [text], Config.MAX_TEXT_LENGTH))
-        t2 = pc()
-        try:
-            img = load_image_uint8(image_path, self._image_size)
-        except Exception as e:  # degrade-don't-fail
-            log.warning('image decode failed: %s', e)
-            return self._predict_degraded(request, wave=wave,
-                                          image_failed=True)
-        t3 = pc()
         b = self._bucket(1)
-        args = (self._wire_waves(wave[None], b), _pad_rows(ids, b),
-                _pad_rows(mask, b), self._wire_image(img[None], b))
-        t4 = pc()
-        row = self._run('_trimodal_forward', *args)[0]
-        t5 = pc()
-        out = self._trimodal_result(row)
-        phases = {'wav_load': t1 - t0, 'tokenize': t2 - t1,
-                  'image_load': t3 - t2, 'wire_encode': t4 - t3,
-                  'dispatch_fetch': t5 - t4, 'result_unpack': pc() - t5}
-        self._last_b1_phases = {k: v * 1e3 for k, v in phases.items()}
+        span = stage_timer.span
+        img = None
+        with span('trimodal.dispatch', rows=1, bucket=b):
+            with span('request.decode'):
+                with span('request.decode.speech') as wav_span:
+                    try:
+                        wave = wav.load_and_fix_length(audio_path)[0]
+                    except Exception as e:  # degrade-don't-fail
+                        log.warning('audio decode failed for %s: %s',
+                                    audio_path, e)
+                        wave = None
+                if wave is not None:
+                    with span('request.decode.image') as img_span:
+                        try:
+                            img = load_image_uint8(image_path,
+                                                   self._image_size)
+                        except Exception as e:  # degrade-don't-fail
+                            log.warning('image decode failed: %s', e)
+            if img is None:
+                with span('trimodal.result_unpack'):
+                    return self._predict_degraded(
+                        request, wave=wave, audio_failed=wave is None,
+                        image_failed=wave is not None)
+            # the batch path's wire spans, opened here so that the clock
+            # can split WordPiece (tokenize) from the rest of the wire
+            with span('trimodal.wire_encode') as wire_span:
+                with span('trimodal.wire_encode.speech'):
+                    w_wire = self._wire_waves(wave[None], b)
+                with span('trimodal.wire_encode.text') as text_span:
+                    ids, mask = self._text_wire([text], b)
+                with span('trimodal.wire_encode.image'):
+                    i_wire = self._wire_image(img[None], b)
+            with span('trimodal.dispatch_fetch') as run_span:
+                row = self._run('_trimodal_forward', w_wire, ids, mask,
+                                i_wire)[0]
+            with span('trimodal.result_unpack') as unpack_span:
+                out = self._trimodal_result(row)
+        self._last_b1_phases = {
+            'wav_load': wav_span.ms, 'tokenize': text_span.ms,
+            'image_load': img_span.ms,
+            'wire_encode': wire_span.ms - text_span.ms,
+            'dispatch_fetch': run_span.ms, 'result_unpack': unpack_span.ms}
         return out
 
     def predecode_multimodal(self, request: Dict) -> Dict:
@@ -1338,18 +1392,21 @@ class EmotionEngine:
         'image' arrays directly. A failed decode keeps only the path: the
         batch path re-attempts it and degrades that request."""
         out = dict(request)
-        if request.get('audio_path') and out.get('wave') is None:
-            try:
-                out['wave'] = wav.load_and_fix_length(
-                    request['audio_path'])[0]
-            except Exception:
-                pass
-        if request.get('image_path') and out.get('image') is None:
-            try:
-                out['image'] = load_image_uint8(request['image_path'],
-                                                self._image_size)
-            except Exception:
-                pass
+        with stage_timer.span('request.decode'):
+            if request.get('audio_path') and out.get('wave') is None:
+                with stage_timer.span('request.decode.speech'):
+                    try:
+                        out['wave'] = wav.load_and_fix_length(
+                            request['audio_path'])[0]
+                    except Exception:
+                        pass
+            if request.get('image_path') and out.get('image') is None:
+                with stage_timer.span('request.decode.image'):
+                    try:
+                        out['image'] = load_image_uint8(
+                            request['image_path'], self._image_size)
+                    except Exception:
+                        pass
         return out
 
     def predict_multimodal_batch(self, requests: Sequence[Dict]
@@ -1357,69 +1414,74 @@ class EmotionEngine:
         """Batched tri-modal: requests with all three inputs share one
         device step; the rest take the per-modality path. Requests may
         carry pre-decoded 'wave'/'image' arrays (predecode_multimodal).
-        One undecodable upload degrades only its own request."""
-        out: List[Optional[Dict]] = [None] * len(requests)
-        degraded: Dict[int, Dict[str, Any]] = {}
-        full_idx = [i for i, r in enumerate(requests)
-                    if r.get('audio_path') and r.get('text')
-                    and r.get('image_path')]
-        good = []
-        if self._all_live and full_idx:
-            def ready(val):
-                f: Future = Future()
-                f.set_result(val)
-                return f
+        One undecodable upload degrades only its own request. The whole
+        call is the span trimodal.dispatch (attrs: rows, bucket)."""
+        with stage_timer.span('trimodal.dispatch',
+                              rows=len(requests)) as dispatch:
+            out: List[Optional[Dict]] = [None] * len(requests)
+            degraded: Dict[int, Dict[str, Any]] = {}
+            full_idx = [i for i, r in enumerate(requests)
+                        if r.get('audio_path') and r.get('text')
+                        and r.get('image_path')]
+            good = []
+            if self._all_live and full_idx:
+                def ready(val):
+                    f: Future = Future()
+                    f.set_result(val)
+                    return f
 
-            pool = (self._ensure_decode_pool()
-                    if any(requests[i].get('wave') is None
-                           or requests[i].get('image') is None
-                           for i in full_idx) else None)
-            t_dec = time.perf_counter()
-            futs = [(i,
-                     ready(requests[i]['wave'])
-                     if requests[i].get('wave') is not None else
-                     pool.submit(lambda p: wav.load_and_fix_length(p)[0],
-                                 requests[i]['audio_path']),
-                     ready(requests[i]['image'])
-                     if requests[i].get('image') is not None else
-                     pool.submit(load_image_uint8,
-                                 requests[i]['image_path'],
-                                 self._image_size))
-                    for i in full_idx]
-            for i, wf, imf in futs:
-                try:
-                    w = wf.result()
-                except Exception as e:  # degrade-don't-fail
-                    log.warning('batch audio decode failed (%s): %s',
-                                requests[i]['audio_path'], e)
-                    imf.cancel()
-                    degraded[i] = {'audio_failed': True}
-                    continue
-                try:
-                    good.append((i, w, imf.result()))
-                except Exception as e:  # degrade-don't-fail
-                    log.warning('batch image decode failed (%s): %s',
-                                requests[i]['image_path'], e)
-                    degraded[i] = {'wave': w, 'image_failed': True}
-            stage_timer.record('trimodal.decode_stage_ms',
-                               (time.perf_counter() - t_dec) * 1e3)
-        if good:
-            with stage_timer.span('trimodal.dispatch_fetch'):
+                pool = (self._ensure_decode_pool()
+                        if any(requests[i].get('wave') is None
+                               or requests[i].get('image') is None
+                               for i in full_idx) else None)
+                t_dec = time.perf_counter()
+                futs = [(i,
+                         ready(requests[i]['wave'])
+                         if requests[i].get('wave') is not None else
+                         pool.submit(lambda p: wav.load_and_fix_length(p)[0],
+                                     requests[i]['audio_path']),
+                         ready(requests[i]['image'])
+                         if requests[i].get('image') is not None else
+                         pool.submit(load_image_uint8,
+                                     requests[i]['image_path'],
+                                     self._image_size))
+                        for i in full_idx]
+                for i, wf, imf in futs:
+                    try:
+                        w = wf.result()
+                    except Exception as e:  # degrade-don't-fail
+                        log.warning('batch audio decode failed (%s): %s',
+                                    requests[i]['audio_path'], e)
+                        imf.cancel()
+                        degraded[i] = {'audio_failed': True}
+                        continue
+                    try:
+                        good.append((i, w, imf.result()))
+                    except Exception as e:  # degrade-don't-fail
+                        log.warning('batch image decode failed (%s): %s',
+                                    requests[i]['image_path'], e)
+                        degraded[i] = {'wave': w, 'image_failed': True}
+                stage_timer.record('trimodal.decode_stage_ms',
+                                   (time.perf_counter() - t_dec) * 1e3)
+            packed = ()
+            if good:
+                dispatch.attrs['bucket'] = self._bucket(len(good))
                 packed = self._run_trimodal(
-                    np.stack([w for _i, w, _im in good]),
+                    [w for _i, w, _im in good],
                     [requests[i]['text'] for i, _w, _im in good],
-                    np.stack([im for _i, _w, im in good]))
-            for row, (i, _w, _im) in zip(packed, good):
-                out[i] = self._trimodal_result(row)
-        for i, r in enumerate(requests):
-            if out[i] is None:
-                if i in degraded:
-                    out[i] = self._predict_degraded(r, **degraded[i])
-                else:
-                    out[i] = self.predict_multimodal(r.get('audio_path'),
-                                                     r.get('text'),
-                                                     r.get('image_path'))
-        return out
+                    [im for _i, _w, im in good])
+            with stage_timer.span('trimodal.result_unpack'):
+                for row, (i, _w, _im) in zip(packed, good):
+                    out[i] = self._trimodal_result(row)
+                for i, r in enumerate(requests):
+                    if out[i] is None:
+                        if i in degraded:
+                            out[i] = self._predict_degraded(r, **degraded[i])
+                        else:
+                            out[i] = self.predict_multimodal(
+                                r.get('audio_path'), r.get('text'),
+                                r.get('image_path'))
+            return out
 
     def _predict_degraded(self, request: Dict, wave=None,
                           audio_failed: bool = False,

@@ -741,9 +741,12 @@ class EmotionApp:
     @api_login_required
     def api_metrics(self, request, session):
         """Serving-loop stage timings (new; the reference has no tracing,
-        SURVEY.md §5) + trained-model metrics from the DB."""
+        SURVEY.md §5): each stage's percentiles over its last 4,096 calls
+        ('stages') and its count and summed ms over every call ('totals');
+        + trained-model metrics from the DB."""
         return jsonify({
             'stages': timer.summary(),
+            'totals': timer.totals(),
             'batcher': (self._batcher.stats() if self._batcher else {}),
             'models': [{'model': m.model_name, 'accuracy': m.accuracy,
                         'f1': m.f1_score, 'date': m.training_date}
@@ -786,6 +789,7 @@ class EmotionApp:
                 payload = json.dumps({
                     'ts': _time.time(),
                     'stages': timer.summary(),
+                    'totals': timer.totals(),
                     'batcher': (self._batcher.stats()
                                 if self._batcher else {}),
                 })

@@ -377,3 +377,37 @@ def test_trainer_writes_its_model_metrics_row(databases, tmp_path):
     assert len(rows) == 1 and rows[0][0] == 'speech_dnn'
     assert rows[0][1] == max(history['val_acc'])
     assert all(v is not None for v in rows[0][2:])
+
+
+def test_metrics_report_totals_past_the_reservoir(tmp_path):
+    """/api/metrics and its stream carry timer.totals() under 'totals'
+    beside 'stages': every call's count, where a stage's percentiles
+    keep its last 4,096."""
+    import json
+    from mec_tpu_torch.utils.profiling import timer
+    app = tapp.create_app(db=Database(str(tmp_path / 'm.db')),
+                          engine=EmotionEngine(device='cpu'), testing=True)
+    client = Client(app)
+    assert client.get('/api/metrics').status_code == 401
+    assert client.post('/api/register', json=USER).status_code in (200, 201)
+    timer.reset()
+    try:
+        for _ in range(5000):
+            timer.record('batcher.multimodal.queue_wait_ms', 2.0)
+        body = client.get('/api/metrics').json
+        assert body['stages']['batcher.multimodal.queue_wait_ms'][
+            'count'] == 4096
+        assert body['totals']['batcher.multimodal.queue_wait_ms'] == {
+            'count': 5000, 'sum_ms': 10000.0}
+        frames = [f for f in client.get(
+            '/api/metrics/stream?ticks=1&interval=0.2').get_data(
+                as_text=True).split('\n\n') if f.strip()]
+        payload = json.loads(frames[0][len('data: '):])
+        assert payload['totals']['batcher.multimodal.queue_wait_ms'][
+            'count'] == 5000
+        # the app's own endpoint spans count too
+        assert payload['totals']['api_metrics']['count'] == 1
+    finally:
+        timer.reset()
+        if app._batcher is not None:
+            app._batcher.stop()
