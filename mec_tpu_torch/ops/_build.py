@@ -15,6 +15,7 @@ tensor reaches its kernel or an exception.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -148,12 +149,39 @@ def device_of(device: torch.device):
 
 
 _count_lock = threading.Lock()
+_capturing = threading.local()
 
 
 def count_launch(wrapper) -> None:
-    """wrapper.launches += 1, safe against concurrent serving threads."""
+    """wrapper.launches += 1, safe against concurrent serving threads.
+    Inside counting_calls() on this thread (a CUDA graph's capture, which
+    launches nothing yet) the call is noted there instead."""
+    calls = getattr(_capturing, 'calls', None)
+    if calls is not None:
+        calls[wrapper] = calls.get(wrapper, 0) + 1
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def counting_calls() -> Iterator[Dict]:
+    """Note the wrapper calls this thread makes inside the block, as
+    {wrapper: calls}, in place of adding them to .launches: what one
+    replay of a graph captured in the block launches (add_launches)."""
+    _capturing.calls = calls = {}
+    try:
+        yield calls
+    finally:
+        _capturing.calls = None
+
+
+def add_launches(calls: Dict) -> None:
+    """Add counting_calls()'s {wrapper: calls} to the wrappers'
+    .launches, under the lock count_launch takes."""
+    with _count_lock:
+        for wrapper, n in calls.items():
+            wrapper.launches += n
 
 
 def on_cpu(t: torch.Tensor, name: str) -> bool:

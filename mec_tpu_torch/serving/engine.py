@@ -119,9 +119,19 @@ on each is kept with its interval, thread and parent):
     trimodal.dispatch_fetch          _run alone
     trimodal.result_unpack           result dicts and the degraded ladder
   step.h2d, step.launch, step.fetch  every _run: the copies in, the step
-                                     method's launches (in the tri-modal
-                                     step: .speech, .text, .image,
-                                     .fusion), the rows back
+                                     method's launches (in an eager
+                                     tri-modal step: .speech, .text,
+                                     .image, .fusion), the rows back
+    step.replay                      inside step.launch, when the step
+                                     replays its CUDA graph
+
+On a card, warmup captures the tri-modal step into one CUDA graph a
+(batch bucket, sequence bucket) on every replica (serving/graphs.py), and
+_run replays the graph whose argument shapes and dtypes match, in place
+of the step's ~2,000-2,500 eager launches; every other call (the CPU, an
+uncaptured shape, the single-modality steps) runs eagerly. Replacing
+weights or static scales drops the graphs; the next warmup captures them
+again.
 """
 
 from __future__ import annotations
@@ -171,6 +181,7 @@ from mec_tpu_torch.ops.quant import (calibrate_static_scales,
 from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
 from mec_tpu_torch.parallel.mesh import local_mesh_shape
 from mec_tpu_torch.serving import wire
+from mec_tpu_torch.serving.graphs import StepGraphs
 from mec_tpu_torch.text.cleaning import clean_text
 from mec_tpu_torch.text.keras_tokenizer import KerasTokenizer
 from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
@@ -457,6 +468,9 @@ class EmotionEngine:
         self._bert_native_path = paths.get('bert')
         self._decode_pool = None
         self._decode_pool_lock = threading.Lock()
+        # the captured steps (warmup, _capture); replicas are added last
+        self._graphs = StepGraphs()
+        self.replicas: List['EmotionEngine'] = [self]
         # the last fused batch-1 request's phases (ms), written by
         # _predict_trimodal_fused (JAX engine.py:181)
         self._last_b1_phases: Dict[str, float] = {}
@@ -524,8 +538,7 @@ class EmotionEngine:
                 log.warning('MEC_FUSION_MODE=rf but no fusion_rf artifact '
                             '(%s); serving attention fusion',
                             Config.FUSION_RF_MODEL_PATH)
-        self.replicas: List['EmotionEngine'] = [self] + [
-            self._replica(d) for d in devices[1:]]
+        self.replicas = [self] + [self._replica(d) for d in devices[1:]]
 
     def _make_dnn(self, variables: Dict, device):
         """The speech DNN of the mode: the fused BN-folded kernel (K4)
@@ -572,6 +585,7 @@ class EmotionEngine:
         rep = copy.copy(self)
         rep.device = device
         rep.replicas = [rep]
+        rep._graphs = StepGraphs()
         for name in ('image', 'bert', 'fusion', 'lstm', 'forest'):
             setattr(rep, name, _move(getattr(self, name), device))
         if self.speech is not None:
@@ -703,14 +717,11 @@ class EmotionEngine:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in arrays)
 
-    def _run(self, step: str, *args) -> np.ndarray:
-        """Device step `step` (a method name) over the replicas: each
-        argument is a host array or a tuple of them (a wire), every one
-        with the bucket's rows leading. Replica r takes the r-th
-        contiguous block of rows on its device; every block is copied in
-        before any is launched and launched before any is fetched (the
-        spans step.h2d, step.launch, step.fetch), and the packed outputs
-        come back concatenated in row order, as numpy."""
+    def _blocks(self, args) -> List[List]:
+        """Each replica's arguments on its device: each argument is a host
+        array or a tuple of them (a wire), every one with the bucket's
+        rows leading, and replica r takes the r-th contiguous block of
+        rows."""
         d = len(self.replicas)
         rows = (args[0][0] if isinstance(args[0], tuple) else args[0]).shape[0]
         per = rows // d
@@ -721,13 +732,46 @@ class EmotionEngine:
                     x[r * per:(r + 1) * per] for x in a)
             return self.replicas[r]._to_device((a[r * per:(r + 1) * per],))[0]
 
+        return [[block(a, r) for a in args] for r in range(d)]
+
+    def _run(self, step: str, *args) -> np.ndarray:
+        """Device step `step` (a method name) over the replicas (_blocks).
+        Every block is copied in before any is launched and launched
+        before any is fetched (the spans step.h2d, step.launch,
+        step.fetch), and the packed outputs come back concatenated in row
+        order, as numpy. Where every replica holds a graph of the step at
+        its block's shapes and dtypes, the graphs replay (the span
+        step.replay); otherwise the step method runs eagerly."""
         with stage_timer.span('step.h2d', step=step):
-            ins = [[block(a, r) for a in args] for r in range(d)]
+            ins = self._blocks(args)
         with stage_timer.span('step.launch', step=step):
-            outs = [getattr(rep, step)(*x)
-                    for rep, x in zip(self.replicas, ins)]
+            graphs = [rep._graphs.get(step, x)
+                      for rep, x in zip(self.replicas, ins)]
+            if None in graphs:
+                outs = [getattr(rep, step)(*x)
+                        for rep, x in zip(self.replicas, ins)]
+            else:
+                with stage_timer.span('step.replay', step=step):
+                    outs = [rep._graphs.replay(g, x) for rep, g, x
+                            in zip(self.replicas, graphs, ins)]
         with stage_timer.span('step.fetch', step=step):
             return np.concatenate([o.cpu().numpy() for o in outs])
+
+    def _capture(self, step: str, *args) -> None:
+        """Capture `step` at these host arguments' shapes (as _run takes
+        them) into a CUDA graph on every replica on a card; _run replays
+        it from then on. The step must have run eagerly at these shapes
+        first. Nothing is captured on the CPU, nor where a graph of these
+        shapes is held already."""
+        for rep, x in zip(self.replicas, self._blocks(args)):
+            if rep.device.type == 'cuda' and rep._graphs.get(step, x) is None:
+                rep._graphs.capture(step, getattr(rep, step), x)
+
+    def _drop_graphs(self) -> None:
+        """Forget every replica's captured steps: their addresses point at
+        the weights and scales being replaced."""
+        for rep in self.replicas:
+            rep._graphs.clear()
 
     @property
     def _compress(self) -> bool:
@@ -864,6 +908,7 @@ class EmotionEngine:
         """Quantize and calibrate as the JAX engine does at load
         (engine.py:461-474, :645-680, :747-758), raising where it would
         log and serve a weaker mode; then build the model."""
+        self._drop_graphs()
         kwargs = {k: v for k, v in kwargs.items() if k in _BERT_FIELDS}
         if isinstance(vocab, WordPieceTokenizer):
             self.bert_tokenizer = vocab
@@ -901,6 +946,7 @@ class EmotionEngine:
         meta['int8_scales'][key] when present and complete, else one
         dynamic-mode forward on the device of seven keyworded sentences,
         one per emotion, at MAX_TEXT_LENGTH (engine.py:670-675)."""
+        self._drop_graphs()
         key = self._bert_scales_key()
         if self._insert_cached_scales(self.bert, key, 'BERT'):
             self._bert_scales_cached = True
@@ -1019,6 +1065,7 @@ class EmotionEngine:
         """Fold, quantize and calibrate as the JAX engine does at load
         (engine.py:433-460, :714-731), raising where it would log and
         serve a weaker mode; then build the model on the device."""
+        self._drop_graphs()
         self._image_arch = ('mobilenet_v2' if 'conv_stem' in
                             variables['params'] else 'resnet50')
         size = meta.get('img_size')
@@ -1083,6 +1130,7 @@ class EmotionEngine:
         forward of the calibration batch through the architecture's
         dynamic-mode model on the device, written back into the .mecp
         meta."""
+        self._drop_graphs()
         key = self._image_scales_key()
         if self._insert_cached_scales(self.image, key, 'image'):
             self._image_scales_cached = True
@@ -1512,7 +1560,8 @@ class EmotionEngine:
         traffic: each batch bucket, and for text and the tri-modal step
         each sequence bucket plus the full length (engine.py:921-965).
         Builds the kernels and their constant tables and warms the
-        allocator."""
+        allocator; on a card, then captures the tri-modal step at each of
+        its shapes (_capture), so call it before any traffic."""
         seqs = sorted({s for s in Config.SEQ_BUCKETS
                        if s < Config.MAX_TEXT_LENGTH}
                       | {Config.MAX_TEXT_LENGTH})
@@ -1537,6 +1586,8 @@ class EmotionEngine:
                 self._run('_text_forward', ids, mask)
                 if self._all_live:
                     self._run('_trimodal_forward', w_wire, ids, mask, i_wire)
+                    self._capture('_trimodal_forward', w_wire, ids, mask,
+                                  i_wire)
 
 
 _engine: Optional[EmotionEngine] = None

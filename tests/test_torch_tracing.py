@@ -11,7 +11,11 @@ call where summary() keeps the last `capacity`. A tri-modal dispatch
 records every span of the engine's table, each child inside its parent
 on the parent's thread, its direct children covering at least 95% of it;
 the fused batch-1 path records the same spans and reads _last_b1_phases
-off them, and a request it degrades leaves them empty.
+off them, and a request it degrades leaves them empty. On the CPU warmup
+captures no CUDA graph and every step runs eagerly, with its
+step.launch.<leg> spans and no step.replay; a graph's key tells apart
+what its replay could not serve, and new weights or scales drop every
+replica's graphs.
 """
 
 import os
@@ -26,7 +30,9 @@ from PIL import Image
 
 from mec_tpu_torch.config import Config
 from mec_tpu_torch.ops import wav
+from mec_tpu_torch.ops.quant import extract_static_scales
 from mec_tpu_torch.serving.engine import EmotionEngine
+from mec_tpu_torch.serving.graphs import StepGraphs, signature
 from mec_tpu_torch.serving.synthetic_artifacts import \
     write_synthetic_artifacts
 from mec_tpu_torch.utils import profiling
@@ -376,3 +382,87 @@ def test_aggregates_stay_on_with_the_log_off(engines):
         tot['trimodal.wire_encode']['sum_ms'] <= \
         tot['trimodal.dispatch']['sum_ms']
     timer.reset()
+
+
+# ----------------------------------------------------------------------
+# CUDA graphs (serving/graphs.py): what the CPU shows of them
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize('mode', ['attention', 'rf'])
+def test_cpu_warmup_captures_nothing_and_steps_run_eagerly(engines, logged,
+                                                           mode):
+    engs, reqs = engines
+    eng = engs[mode]
+    eng.warmup((1,))
+    assert len(eng._graphs) == 0
+    logged.reset()
+    pre = [eng.predecode_multimodal(r) for r in reqs[:2]]
+    args = eng._trimodal_wire([p['wave'] for p in pre],
+                              [p['text'] for p in pre],
+                              [p['image'] for p in pre], 8)
+    got = eng._run('_trimodal_forward', *args)
+    (x,) = eng._blocks(args)
+    np.testing.assert_array_equal(got, eng._trimodal_forward(*x).numpy())
+    names = {r.name for r in logged.log()}
+    assert 'step.replay' not in names
+    assert {'step.h2d', 'step.launch', 'step.fetch', 'step.launch.speech',
+            'step.launch.text', 'step.launch.image',
+            'step.launch.fusion'} <= names
+
+
+def _step_args(rows=8, seq=32, ids=torch.int32, pcm=torch.uint8):
+    """Device arguments shaped like the tri-modal step's: an audio wire
+    (packed, scale), ids, mask and an image wire (Y, UV)."""
+    return [(torch.zeros(rows, 99, dtype=pcm), torch.zeros(rows, 1)),
+            torch.zeros(rows, seq, dtype=ids),
+            torch.zeros(rows, seq, dtype=ids),
+            (torch.zeros(rows, 4, 4, dtype=torch.uint8),
+             torch.zeros(rows, 2, 2, 2, dtype=torch.uint8))]
+
+
+@pytest.mark.parametrize('step,other', [
+    ('_trimodal_forward', dict(seq=16)),
+    ('_trimodal_forward', dict(seq=128)),
+    ('_trimodal_forward', dict(rows=32)),
+    ('_trimodal_forward', dict(ids=torch.int64)),
+    ('_trimodal_forward', dict(pcm=torch.int16)),
+    ('_text_forward', {})])
+def test_graph_key_separates_shapes_dtypes_and_steps(step, other):
+    graphs = StepGraphs()
+    graphs._graphs['_trimodal_forward', signature(_step_args())] = 'g'
+    assert graphs.get('_trimodal_forward', _step_args()) == 'g'
+    if step == '_trimodal_forward':
+        assert signature(_step_args(**other)) != signature(_step_args())
+    assert graphs.get(step, _step_args(**other)) is None
+
+
+@pytest.fixture(scope='module')
+def bf16_engine(tmp_path_factory):
+    """A tiny bf16 (int8-static) CPU engine on two replicas."""
+    d = str(tmp_path_factory.mktemp('models_bf16'))
+    write_synthetic_artifacts(d, tiny=True, image_size=32)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield EmotionEngine.from_models_dir(d, compute_dtype='bfloat16',
+                                            device='cpu', mesh=['cpu', 'cpu'])
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('what', ['bert', 'image'])
+def test_recalibration_drops_every_replicas_graphs(bf16_engine, what):
+    eng = bf16_engine
+    assert len(eng.replicas) == 2
+    assert eng.replicas[1]._graphs is not eng._graphs
+    # the scales come back from the cache: a calibrated tree is not
+    # calibrated again
+    art = getattr(eng, what)
+    key = getattr(eng, f'_{what}_scales_key')()
+    art['meta'] = dict(art['meta'], int8_scales={
+        key: extract_static_scales(art['variables'])})
+    for rep in eng.replicas:
+        rep._graphs._graphs['_trimodal_forward', ()] = 'g'
+        assert len(rep._graphs) == 1
+    getattr(eng, f'_calibrate_{what}_static')()
+    assert [len(rep._graphs) for rep in eng.replicas] == [0, 0]
