@@ -2,9 +2,10 @@
 BENCHMARK.json, benchmark/configs/<config>.json,
 benchmark/traffic/<traffic>.json, benchmark/end_to_end/<metric>.py,
 benchmark/layer_metrics/<metric>.py,
-benchmark/flops/<config>.py, benchmark/bounds/<kernel>.py and the
-config's reference pieces under benchmark/reference/. Adding any of
-them is adding files and entries: nothing here names one."""
+benchmark/flops/<config>.py, benchmark/bounds/<kernel>.py, the
+config's text and image legs under benchmark/legs/ and its reference
+pieces under benchmark/reference/. Adding any of them is adding files
+and entries: nothing here names one."""
 
 from __future__ import annotations
 
@@ -29,6 +30,19 @@ def _module(path: str, name: str) -> ModuleType:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def leg(cfg: Dict, kind: str, bench_dir: str = BENCH_DIR) -> ModuleType:
+    """A configuration's text or image leg (kind 'text' or 'image'):
+    <bench_dir>/legs/<kind>_<arch>.py, arch from the config's table. A
+    leg has plan(d, **table), its weight tree (trees.Draws leaves, numpy
+    constants or seeded.Leaf recipes); optionally post(tree), applied to
+    the drawn tree; TINY, the widths of its tiny copy (tests/tiny.py);
+    and a text leg engine_kwargs(text, tree, vocab), the keywords that
+    hand its tree to the port's EmotionEngine."""
+    name = f'{kind}_{cfg[kind]["arch"]}'
+    return _module(os.path.join(bench_dir, 'legs', name + '.py'),
+                   'leg_' + name)
 
 
 class Cell:

@@ -2,7 +2,7 @@
 pieces the configuration names under "reference":
 
   audio -> speech_features -> (x - mean) / scale -> speech    (probs, feat)
-  tokenizer -> text                                            (probs, CLS)
+  tokenizer -> text                                            (probs, feat)
   image_decode -> the image wire -> image                      (probs, feat)
   fusion (on the reference's features, or on the program's returned
           modality probabilities where the piece says INPUT = 'program')
@@ -41,6 +41,8 @@ def calibration_frames(size: int) -> np.ndarray:
 
 
 def to_torch(tree, device):
+    """numpy float arrays to float32 tensors on `device`; anything else
+    (a seeded leaf, a tensor, a number) as it is."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, np.ndarray) and tree.dtype.kind == 'f':
@@ -56,7 +58,7 @@ class Reference:
         self.mod = {role: importlib.import_module(f'benchmark.reference.{n}')
                     for role, n in cfg['reference'].items()}
         self.trees = {k: to_torch(trees[k], device)
-                      for k in ('speech', 'bert', 'image', 'fusion')
+                      for k in ('speech', 'text', 'image', 'fusion')
                       if k in trees}
         self.forest = trees.get('forest')
         sc = cfg['speech_scaler']
@@ -78,9 +80,8 @@ class Reference:
         ids, mask = m['tokenizer'].encode(
             [f'i feel so {e} about all of this today' for e in EMOTIONS],
             self.vocab, text['max_length'])
-        m['text'].forward(self.trees['bert'], torch.as_tensor(ids, device=dev),
-                          torch.as_tensor(mask, device=dev),
-                          text['num_attention_heads'], prec)
+        m['text'].forward(self.trees['text'], torch.as_tensor(ids, device=dev),
+                          torch.as_tensor(mask, device=dev), text, prec)
         size = self.cfg['image']['img_size']
         m['image'].forward(self.trees['image'], m['image_decode'].normalize(
             torch.as_tensor(calibration_frames(size), device=dev)), prec)
@@ -107,9 +108,8 @@ class Reference:
                                           text['max_length'])
         L = int(mask.sum(1).max())
         t_p, t_f = m['text'].forward(
-            self.trees['bert'], torch.as_tensor(ids[:, :L], device=dev),
-            torch.as_tensor(mask[:, :L], device=dev),
-            text['num_attention_heads'], prec)
+            self.trees['text'], torch.as_tensor(ids[:, :L], device=dev),
+            torch.as_tensor(mask[:, :L], device=dev), text, prec)
         size = self.cfg['image']['img_size']
         u8 = torch.as_tensor(np.stack([m['image_decode'].load(r.image_path,
                                                               size)

@@ -45,9 +45,9 @@ if ROOT not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from benchmark.harness import check, drive, stats, trace  # noqa: E402
+from benchmark.harness import check, drive, hostload, stats, trace  # noqa: E402
 from benchmark.harness import traffic as tr  # noqa: E402
-from benchmark.harness.cells import Cell  # noqa: E402
+from benchmark.harness.cells import Cell, leg  # noqa: E402
 from benchmark.harness.peaks import PEAKS  # noqa: E402
 from benchmark.harness.vocab import build_vocab  # noqa: E402
 from benchmark.reference import wordpiece  # noqa: E402
@@ -97,19 +97,10 @@ def pin_environment(cell) -> None:
 def build_engine(cfg, trees, vocab, device):
     from mec_tpu_torch.serving.batcher import EngineBatcher
     from mec_tpu_torch.serving.engine import EmotionEngine
-    t, f = cfg['text'], cfg['fusion']
-    kw = dict(
-        image_variables=trees['image'], image_meta=trees['image_meta'],
-        bert_variables=trees['bert'],
-        bert_kwargs=dict(vocab_size=t['vocab_size'],
-                         hidden_size=t['hidden_size'],
-                         num_layers=t['num_hidden_layers'],
-                         num_heads=t['num_attention_heads'],
-                         intermediate_size=t['intermediate_size'],
-                         max_position=t['max_position_embeddings'],
-                         type_vocab_size=t['type_vocab_size'],
-                         num_classes=t['num_labels']),
-        bert_vocab=vocab)
+    f = cfg['fusion']
+    kw = dict(image_variables=trees['image'], image_meta=trees['image_meta'],
+              **leg(cfg, 'text').engine_kwargs(cfg['text'], trees['text'],
+                                               vocab))
     if f['kind'] == 'attention':
         kw.update(fusion_variables=trees['fusion'],
                   fusion_config={k: f[k] for k in (
@@ -248,6 +239,9 @@ def _run(args, cell, cfg, mix, dev, workdir, fault) -> int:
     # ---------------------------------------------------------- window
     stage_timer.reset()
     s0 = batcher.stats()['multimodal']
+    gcc = hostload.GcClock()
+    gcc.start()
+    cpu0 = hostload.cpu_seconds()
     t0 = pc()
     setup_s = t0 - T_PROC - gen_s
     t1 = t0 + args.seconds
@@ -265,6 +259,8 @@ def _run(args, cell, cfg, mix, dev, workdir, fault) -> int:
         sub.start()
         c0 = {k: v.launches for k, v in counters.items()}
     time.sleep(max(0.0, t1 - pc()))
+    cpu_used = hostload.cpu_seconds() - cpu0
+    gc_line = gcc.stop()
     if sub is not None:
         sub.mark()
         c1 = {k: v.launches for k, v in counters.items()}
@@ -313,6 +309,12 @@ def _run(args, cell, cfg, mix, dev, workdir, fault) -> int:
             f'p95 {stats.percentile(lat, 95):.3f} max {max(lat):.3f}')
     log(f'batcher: {ctx.stats["items"]} items in {ctx.stats["batches"]} '
         f'dispatches across the window')
+    log(f'this process used {cpu_used / args.seconds:.3f} CPUs over the '
+        f'window; ' + gc_line)
+    log(hostload.slices(records, t0, t1))
+    log('stage medians ms: ' + ', '.join(
+        f'{k} {v["p50_ms"]:.3f} (n {v["count"]})'
+        for k, v in sorted(timer_summary.items())))
     if spans is not None:
         sizes = [s[4] for s in spans.within('dispatch', t0, t1)]
         hist = {n: sizes.count(n) for n in sorted(set(sizes))}

@@ -13,7 +13,7 @@ METRICS = ('step.graph_share.one_client', 'step.graph_share.saturated')
 
 
 def read(metric, timer):
-    return Cell('resnet50_bert_attn.saturated').reader(metric).read(
+    return Cell('resnet50_bert_attn.one_client').reader(metric).read(
         Context(timer=timer))
 
 

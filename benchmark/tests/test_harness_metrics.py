@@ -11,7 +11,7 @@ from benchmark.harness.cells import Cell
 from benchmark.harness.trace import Launch, Reading, read
 from benchmark.run import Context
 
-CELL = Cell('resnet50_bert_attn.saturated')
+CELL = Cell('resnet50_bert_attn.one_client')
 
 
 def reader(name, kind='layer_metrics'):
@@ -46,7 +46,7 @@ def test_end_to_end_readers():
     assert reader('setup_s', 'end_to_end').read(ctx) == 12.5
     assert reader('preds_per_s', 'end_to_end').read(ctx) == 1.0
     assert reader('latency_p50_ms', 'end_to_end').read(ctx) == 7.0
-    assert reader('latency_p95_ms', 'end_to_end').read(ctx) == 30.0
+    assert reader('latency_p95_ms.one_client').read(ctx) == 30.0
 
 
 def test_host_ms_subtracts_the_nested_step():

@@ -8,7 +8,7 @@ from benchmark.harness.cells import Cell
 from benchmark.run import Context
 from benchmark.tests.tiny import make_root, run_cell
 
-CELL = Cell('resnet50_bert_attn.saturated')
+CELL = Cell('resnet50_bert_attn.one_client')
 
 
 def reader(name):

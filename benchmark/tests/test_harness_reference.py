@@ -70,7 +70,7 @@ def test_trees_repeat_per_seed():
     assert np.array_equal(x, y) and not np.allclose(x, z)
     # He-normal scale and the zeroed special-token rows
     assert abs(x.std() / np.sqrt(2.0 / (9 * 128)) - 1) < 0.05
-    emb = a['bert']['params']['word_embeddings']['embedding']
+    emb = a['text']['params']['word_embeddings']['embedding']
     assert not emb[:5].any() and emb[5:].any()
 
 

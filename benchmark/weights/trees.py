@@ -3,13 +3,16 @@
 The init recipes are a frozen copy of mec_tpu_torch/serving/
 synthetic_artifacts.py's tree makers (speech_variables, image_variables,
 bert_variables, fusion_variables, mobilenet_variables, forest_arrays),
-so that random weights still separate the classes. Only the source of
-the random numbers differs: every normal and uniform leaf of one model
-set is drawn on the run's device by one torch.Generator in two calls
-(one randn, one rand over all leaves at once), copied to the host once,
-and each leaf is a scaled view of that buffer. The forest's structure
-(a few thousand small draws) comes from numpy. The same trees go to the
-program and, made again from the same seed, to the reference.
+so that random weights still separate the classes; the text and image
+recipes live in their legs (benchmark/legs/), the speech and fusion ones
+and the pieces the image legs share here. Only the source of the random
+numbers differs: every normal and uniform leaf of one model set is drawn
+on the run's device by one torch.Generator in two calls (one randn, one
+rand over all leaves at once), copied to the host once, and each leaf is
+a scaled view of that buffer. A leg too large for that draws its leaves
+one at a time instead (benchmark/weights/seeded.py). The forest's
+structure (a few thousand small draws) comes from numpy. The same trees
+go to the program and, made again from the same seed, to the reference.
 """
 
 from __future__ import annotations
@@ -18,11 +21,6 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-
-# torchvision mobilenet_v2 inverted-residual settings (t, c, n, s)
-INVERTED_RESIDUAL_CFG = (
-    (1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
-    (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
 
 
 class _Leaf:
@@ -73,15 +71,12 @@ class Draws:
 
 
 def resolve(tree: Any) -> Any:
+    """The tree with every Draws leaf replaced by its drawn value."""
     if isinstance(tree, dict):
         return {k: resolve(v) for k, v in tree.items()}
     if isinstance(tree, _Leaf):
         return tree.value
     return tree
-
-
-def _zeros(*shape):
-    return np.zeros(shape, np.float32)
 
 
 # ---------------------------------------------------------------- speech
@@ -107,17 +102,18 @@ def speech_plan(d: Draws, in_dim: int = 56,
     return {'params': params, 'batch_stats': stats}
 
 
-def _bn(d: Draws, c, lo=0.5, hi=1.5):
+# ------------------------------------------- pieces of the image legs
+def bn(d: Draws, c, lo=0.5, hi=1.5):
     return ({'scale': d.uniform(lo, hi, c), 'bias': d.normal(c, std=0.02)},
             {'mean': d.normal(c, std=0.02), 'var': d.uniform(0.5, 2.0, c)})
 
 
-def _conv(d: Draws, kh, kw, cin, cout, fan_in=None):
+def conv(d: Draws, kh, kw, cin, cout, fan_in=None):
     return {'kernel': d.normal(kh, kw, cin, cout,
                                std=np.sqrt(2.0 / (fan_in or kh * kw * cin)))}
 
 
-def _head(d: Draws, cin: int, n_classes: int, fc2_scale: float) -> Dict:
+def head(d: Draws, cin: int, n_classes: int, fc2_scale: float) -> Dict:
     return {'fc1': {'kernel': d.normal(cin, 512, std=1 / np.sqrt(cin)),
                     'bias': d.normal(512, std=0.05)},
             'fc2': {'kernel': d.normal(512, n_classes,
@@ -125,124 +121,11 @@ def _head(d: Draws, cin: int, n_classes: int, fc2_scale: float) -> Dict:
                     'bias': d.normal(n_classes, std=0.05)}}
 
 
-def _center_head(tree: Dict) -> None:
+def center_head(tree: Dict) -> None:
     """Zero-mean weights into each fc1 unit and each class."""
     for k in ('fc1', 'fc2'):
         w = tree['params'][k]['kernel']
         w -= w.mean(axis=0)
-
-
-# ---------------------------------------------------------------- image
-def resnet50_plan(d: Draws, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                  n_classes: int = 7) -> Dict:
-    """ResNet50: He-normal HWIO kernels, BN as _bn with the residual
-    branches' last BN at [0.2, 0.5]; head 2048 -> 512 -> 7 with fc2 at
-    16x lecun scale."""
-    params, stats = {}, {}
-    params['conv1'] = _conv(d, 7, 7, 3, 64)
-    params['bn1'], stats['bn1'] = _bn(d, 64)
-    cin = 64
-    for stage, n_blocks in enumerate(stage_sizes):
-        f = 64 * 2 ** stage
-        for block in range(n_blocks):
-            p, s = {}, {}
-            p['conv1'] = _conv(d, 1, 1, cin, f)
-            p['bn1'], s['bn1'] = _bn(d, f)
-            p['conv2'] = _conv(d, 3, 3, f, f)
-            p['bn2'], s['bn2'] = _bn(d, f)
-            p['conv3'] = _conv(d, 1, 1, f, 4 * f)
-            p['bn3'], s['bn3'] = _bn(d, 4 * f, 0.2, 0.5)
-            if block == 0:
-                p['downsample_conv'] = _conv(d, 1, 1, cin, 4 * f)
-                p['downsample_bn'], s['downsample_bn'] = _bn(d, 4 * f,
-                                                             0.2, 0.5)
-            params[f'layer{stage + 1}_{block}'] = p
-            stats[f'layer{stage + 1}_{block}'] = s
-            cin = 4 * f
-    params.update(_head(d, cin, n_classes, 16.0))
-    return {'params': params, 'batch_stats': stats}
-
-
-def mobilenet_v2_plan(d: Draws, n_classes: int = 7) -> Dict:
-    """MobileNetV2 (width 1.0): He-normal kernels (a depthwise one
-    (3, 3, 1, C) with fan-in 9), project_bn at [1, 2] where a stage
-    begins and [0.3, 0.6] in a residual block; fc2 at 4x lecun scale."""
-    params, stats = {}, {}
-    params['conv_stem'] = _conv(d, 3, 3, 3, 32)
-    params['bn_stem'], stats['bn_stem'] = _bn(d, 32)
-    idx, cin = 1, 32
-    for t, c, n, _s in INVERTED_RESIDUAL_CFG:
-        for i in range(n):
-            hidden = cin * t
-            p, st = {}, {}
-            if t != 1:
-                p['expand_conv'] = _conv(d, 1, 1, cin, hidden)
-                p['expand_bn'], st['expand_bn'] = _bn(d, hidden)
-            p['dw_conv'] = _conv(d, 3, 3, 1, hidden, fan_in=9)
-            p['dw_bn'], st['dw_bn'] = _bn(d, hidden)
-            p['project_conv'] = _conv(d, 1, 1, hidden, c)
-            p['project_bn'], st['project_bn'] = _bn(
-                d, c, *((0.3, 0.6) if i else (1.0, 2.0)))
-            params[f'block_{idx}'], stats[f'block_{idx}'] = p, st
-            cin = c
-            idx += 1
-    params['conv_head'] = _conv(d, 1, 1, cin, 1280)
-    params['bn_head'], stats['bn_head'] = _bn(d, 1280)
-    params.update(_head(d, 1280, n_classes, 4.0))
-    return {'params': params, 'batch_stats': stats}
-
-
-# ---------------------------------------------------------------- text
-def bert_plan(d: Draws, vocab_size: int = 30522, hidden_size: int = 768,
-              num_hidden_layers: int = 12, intermediate_size: int = 3072,
-              max_position_embeddings: int = 512, type_vocab_size: int = 2,
-              num_labels: int = 7, **_ignored) -> Dict:
-    """BERT's own init (N(0, 0.02) embeddings and kernels, zero biases,
-    LayerNorm scale 1); the pooler at lecun scale, the classifier at 8x
-    lecun scale (columns centred after the draw)."""
-    h, f = hidden_size, intermediate_size
-
-    def dense(din, dout):
-        return {'kernel': d.normal(din, dout, std=0.02),
-                'bias': _zeros(dout)}
-
-    def norm(n):
-        return {'scale': np.ones(n, np.float32), 'bias': _zeros(n)}
-
-    params = {'word_embeddings': {'embedding': d.normal(vocab_size, h,
-                                                        std=0.02)},
-              'position_embeddings': {'embedding': d.normal(
-                  max_position_embeddings, h, std=0.02)},
-              'token_type_embeddings': {'embedding': d.normal(
-                  type_vocab_size, h, std=0.02)},
-              'embeddings_norm': norm(h)}
-    for i in range(num_hidden_layers):
-        params[f'layer_{i}'] = {
-            'attention_self': {n: dense(h, h)
-                               for n in ('query', 'key', 'value')},
-            'attention_output': dense(h, h),
-            'attention_norm': norm(h),
-            'intermediate': dense(h, f),
-            'output': dense(f, h),
-            'output_norm': norm(h)}
-    params['pooler'] = {'kernel': d.normal(h, h, std=1 / np.sqrt(h)),
-                        'bias': _zeros(h)}
-    params['classifier'] = {'kernel': d.normal(h, num_labels,
-                                               std=8 / np.sqrt(h)),
-                            'bias': _zeros(num_labels)}
-    return {'params': params}
-
-
-def _bert_post(tree: Dict) -> None:
-    """The special tokens' rows (ids 0-4), position 0 and token type 0
-    are zero, so [CLS] is made by attention over the text; the
-    classifier's columns are centred."""
-    p = tree['params']
-    p['word_embeddings']['embedding'][:5] = 0.0
-    p['position_embeddings']['embedding'][0] = 0.0
-    p['token_type_embeddings']['embedding'][0] = 0.0
-    k = p['classifier']['kernel']
-    k -= k.mean(axis=0)
 
 
 # ---------------------------------------------------------------- fusion
@@ -338,26 +221,35 @@ def forest(seed: int, n_trees: int = 100, depth: int = 12,
     return arrays, meta
 
 
-IMAGE_PLANS = {'resnet50': resnet50_plan, 'mobilenet_v2': mobilenet_v2_plan}
 
 
 def make_trees(cfg: Dict, seed: int, device) -> Dict[str, Any]:
-    """Every tree of a configuration from one seed: 'speech', 'bert',
+    """Every tree of a configuration from one seed: 'speech', 'text',
     'image' (and 'image_meta'), 'fusion' (attention) or 'forest' and
-    'forest_meta' (rf)."""
+    'forest_meta' (rf). The text and image trees are the plans of the
+    legs the configuration names (benchmark/legs/text_<text.arch>.py,
+    image_<image.arch>.py). Their Draws leaves are drawn in one buffer
+    in the order speech, text, image, fusion; their seeded leaves
+    (benchmark/weights/seeded.py) are bound to the seed and the device
+    and drawn where they are used."""
+    from benchmark.harness.cells import leg
     from benchmark.harness.traffic import torch_seed
+    from benchmark.weights import seeded
+    legs = {k: leg(cfg, k) for k in ('text', 'image')}
     d = Draws()
     plans = {'speech': speech_plan(d, **cfg['speech']),
-             'bert': bert_plan(d, **cfg['text']),
-             'image': IMAGE_PLANS[cfg['image']['arch']](d)}
+             'text': legs['text'].plan(d, **cfg['text']),
+             'image': legs['image'].plan(d, **cfg['image'])}
     fus = cfg['fusion']
     if fus['kind'] == 'attention':
         plans['fusion'] = fusion_plan(d, **{k: v for k, v in fus.items()
                                             if k != 'kind'})
     d.run(torch_seed(seed, 10), device)
     trees = {k: resolve(v) for k, v in plans.items()}
-    _bert_post(trees['bert'])
-    _center_head(trees['image'])
+    for k, mod in legs.items():
+        if hasattr(mod, 'post'):
+            mod.post(trees[k])
+    seeded.bind(trees, seed, device)
     trees['image_meta'] = {'arch': cfg['image']['arch'],
                            'img_size': cfg['image']['img_size']}
     if fus['kind'] == 'rf':
