@@ -138,9 +138,10 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               MOE_TRI_BAND, with the tokens routed to another expert
               than on the cpu counted (moe_routes); an fp32 card engine
               against the cpu within 1e-4 (flips printed); CUDA-event
-              times of the MoE tri-modal and text steps at B=1, 32 and
-              seq 16, 128, profiled windows (busy share, ops) at b1 seq
-              16 and b32 seq 128; the MoE BERT-base train step (B=16, seq
+              times of the MoE tri-modal and text steps and profiled
+              windows (busy share, ops) at b1 seq 16 and b32 seq 128
+              (the two other shapes cut, PR 21, to make room for 6h);
+              the MoE BERT-base train step (B=16, seq
               128, fp32: ms/step, samples/s, peak memory, a profiled
               window); the tiny BERT gate trained with --experts 2
   6d. dp      two gloo ranks sharing the card (parallel.launch): the
@@ -228,6 +229,23 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               predict_multimodal_batch b32 (p50 of 10) with the
               waveform wire and with host features; the host's CPU model
               and count
+  6h. moonlight  Moonlight-16B-A3B's text leg at its published widths
+              (15.6 B bf16 parameters drawn on the card by the
+              benchmark's leg, benchmark/configs/
+              moonlight16b_resnet50_attn.json) in a tri-modal engine with
+              phase 6's speech and image trees and a fusion net at
+              text_dim 2048: the grouped expert GEMM against its plain
+              version at b1 x 16, 32, 128 and b32 x 128 on layer 1's
+              experts within EXPERT_TOL, a dropped K-slice of down and a
+              tile shifted by a row each reading above it, and one
+              layer's CUDA-event ms beside its plain version's; warmup
+              captures the nine shapes; with the kernel's count zeroed,
+              b1 requests at sequence buckets 16, 32, 128 and a b32 x 128
+              dispatch: 26 calls (52 launches) a dispatch, and a profiled
+              window of each: the kernel's device ms a dispatch, the
+              card's busy ms, and the bound of benchmark/bounds/
+              grouped_expert_gemm.py at the routing the program recorded
+              (text.moe.experts_touched, text.moe.routed_pairs)
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
               in a marked torch.profiler range of the same 30 calls,
@@ -263,7 +281,9 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               predict_multimodal b1 calls, _last_b1_phases' medians
               summing to the median wall within max(1 ms, 15%)
   8. report   the card's name and power limit; a JSON line of the seven
-              kernels (name, route, source, replaces, launches and
+              kernels and, last, the grouped expert GEMM's row from 6h
+              (launches, max_abs_err, ms, plain_ms, device_ms, bound_ms
+              and share at b32 x 128, by_shape for all four) (name, route, source, replaces, launches and
               launches on the tri-modal paths (launches_by_path: the
               dense engines', the MoE engine's, the two-replica engine's
               of 6e, the HTTP requests' of 6f, the host-feature engines'
@@ -1096,25 +1116,22 @@ def moe_phase(card, wrappers, tri_waves, tri_pics):
         Config.FUSION_MODE, Config.COMPUTE_DTYPE, Config.DFT_PRECISION = saved
 
     t0 = time.perf_counter()
-    for B in (1, 32):
-        for s in (16, 128):
-            ids, mask = eng._to_device(eng._text_wire([SEQ_TEXTS[s]] * B, B))
-            args = (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids,
-                    mask, eng._to_device(eng._wire_image(tri_pics[:B], B)))
-            step = cuda_ms(lambda: eng._trimodal_forward(*args), reps=20)
-            text = cuda_ms(lambda: eng._text_forward(ids, mask), reps=10)
-            extra = ''
-            if (B, s) in ((1, 16), (32, 128)):
-                wall, busy, share, ops, top = profile_step(
-                    lambda: eng._trimodal_forward(*args), steps=5)
-                extra = (f'; profiled wall {wall:.3f} ms, device busy '
-                         f'{busy:.3f} ms, busy share {share:.3f}, {ops:.0f} '
-                         f'device ops/step, most: {top[0][0]} '
-                         f'{top[0][1]:.3f} ms' if top else
-                         '; profiled window lost its launches')
-            print(f'time moe trimodal device step B={B:2d} seq {s:3d}: '
-                  f'{step:.4f} ms (CUDA events; its MoE text step alone '
-                  f'{text:.4f} ms){extra}; {card}')
+    for B, s in ((1, 16), (32, 128)):
+        ids, mask = eng._to_device(eng._text_wire([SEQ_TEXTS[s]] * B, B))
+        args = (eng._to_device(eng._wire_waves(tri_waves[:B], B)), ids,
+                mask, eng._to_device(eng._wire_image(tri_pics[:B], B)))
+        step = cuda_ms(lambda: eng._trimodal_forward(*args), reps=20)
+        text = cuda_ms(lambda: eng._text_forward(ids, mask), reps=10)
+        wall, busy, share, ops, top = profile_step(
+            lambda: eng._trimodal_forward(*args), steps=5)
+        extra = (f'; profiled wall {wall:.3f} ms, device busy '
+                 f'{busy:.3f} ms, busy share {share:.3f}, {ops:.0f} '
+                 f'device ops/step, most: {top[0][0]} '
+                 f'{top[0][1]:.3f} ms' if top else
+                 '; profiled window lost its launches')
+        print(f'time moe trimodal device step B={B:2d} seq {s:3d}: '
+              f'{step:.4f} ms (CUDA events; its MoE text step alone '
+              f'{text:.4f} ms){extra}; {card}')
     print(f'moe timings: {time.perf_counter() - t0:.1f} s')
     del eng
     torch.cuda.empty_cache()
@@ -1166,6 +1183,215 @@ def moe_phase(card, wrappers, tri_waves, tri_pics):
 # process on the same global batch (a mean of two half-batch means
 # against one mean: rounding only), on the card
 DP_TOL = 1e-9
+
+
+# the grouped expert GEMM against its plain version: h rounds to bf16 in
+# both after float32 sums in other orders, so an element near a rounding
+# boundary lands one bf16 ulp apart and down sums 1,408 of them; 5e-3 of
+# the outputs' largest magnitude (tests/test_torch_moonlight.py). The
+# faults it must catch (one 64-wide K-slice of down left out, one tile's
+# rows shifted by a row) are computed beside it and must read above it
+EXPERT_TOL = 5e-3
+# the Moonlight leg's serving shapes: (batch, sequence bucket, real tokens)
+EXPERT_SHAPES = ((1, 16, 12), (1, 32, 30), (1, 128, 100), (32, 128, 128))
+MOONLIGHT_SEED = 3
+
+
+def expert_gemm_bound():
+    """benchmark/bounds/grouped_expert_gemm.py, the one definition of the
+    kernel's bound (its bytes and operations a step of 26 layers)."""
+    import importlib.util
+    path = os.path.join(HERE, 'benchmark', 'bounds', 'grouped_expert_gemm.py')
+    spec = importlib.util.spec_from_file_location('expert_gemm_bound', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def moonlight_phase(card, speech_tree, scaler, img_tree, image_meta,
+                    tri_waves, tri_pics):
+    """6h. moonlight: Moonlight-16B-A3B's text leg at its published widths
+    (benchmark/configs/moonlight16b_resnet50_attn.json; bf16 leaves drawn
+    on the card by the benchmark's own leg) in a tri-modal engine with
+    phase 6's speech and image trees and a fusion net at text_dim 2048.
+    The grouped expert GEMM against its plain version at the four serving
+    shapes on layer 1's experts, with the faults the tolerance must catch;
+    then the engine's own run: warmup captures the nine shapes, the
+    kernel's count is zeroed, b1 requests at sequence buckets 16, 32 and
+    128 and one b32 x 128 dispatch are served (26 calls a dispatch), and a
+    profiled window of each gives the kernel's device ms a dispatch
+    beside its bound at the routing the program recorded. Returns the
+    kernel's row of the report."""
+    import torch
+
+    from benchmark.legs import text_moonlight as leg
+    from benchmark.weights import seeded
+    from mec_tpu_torch.ops import expert_gemm as eg
+    from mec_tpu_torch.serving.engine import EmotionEngine
+    from mec_tpu_torch.serving.synthetic_artifacts import (fusion_variables,
+                                                           make_vocab)
+    from mec_tpu_torch.utils.profiling import timer as stage_timer
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+    with open(os.path.join(HERE, 'benchmark', 'configs',
+                           'moonlight16b_resnet50_attn.json')) as f:
+        text = json.load(f)['text']
+    bnd = expert_gemm_bound()
+    t0 = time.perf_counter()
+    mtree = seeded.materialize(seeded.bind(leg.plan(None, **text),
+                                           MOONLIGHT_SEED, dev),
+                               torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(mtree))
+    print(f'moonlight: {n_params:,} bf16 parameters drawn on the card in '
+          f'{time.perf_counter() - t0:.2f} s')
+
+    # ---- the kernel against its plain version, and the faults it catches
+    ml = mtree['layers']['1']['mlp']
+    weights = (ml['experts']['gate_proj'], ml['experts']['up_proj'],
+               ml['experts']['down_proj'],
+               ml['shared_experts']['gate_proj']['weight'],
+               ml['shared_experts']['up_proj']['weight'],
+               ml['shared_experts']['down_proj']['weight'])
+    E, S, K = text['n_routed_experts'], text['n_shared_experts'], \
+        text['num_experts_per_tok']
+    cut = weights[2].clone()
+    cut[..., :64] = 0
+    errs, alone = [], {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for B, L, real in EXPERT_SHAPES:
+        T = B * L
+        x = torch.randn(T, text['hidden_size'], generator=g,
+                        device=dev).to(torch.bfloat16)
+        valid = (torch.arange(L, device=dev) < real).repeat(B)
+        idx = torch.topk(torch.rand(T, E, generator=g, device=dev), K,
+                         -1).indices
+        r = eg.route(idx, torch.rand(T, K, generator=g, device=dev), valid,
+                     E, S)
+        y = eg.grouped_expert_gemm(x, r, *weights)
+        want = eg.grouped_expert_gemm_plain(x, r, *weights)
+        n = int(r.offsets[-1])
+        check(n == int(valid.sum()) * (K + S),
+              f'grouped_expert_gemm b{B} x {L}: {n} pairs routed')
+        top = want[:n].abs().max().item()
+        err = (y[:n] - want[:n]).abs().max().item() / top
+        k_cut = eg.grouped_expert_gemm_plain(x, r, weights[0], weights[1],
+                                             cut, *weights[3:])
+        k_err = (k_cut[:n] - want[:n]).abs().max().item() / top
+        bm = eg.tile_rows(T)
+        lo = int(r.offsets[int((r.counts[:E] >= 2).nonzero()[0])])
+        shifted = want.clone()
+        shifted[lo:lo + bm] = want[lo:lo + bm].roll(1, 0)
+        t_err = (shifted[:n] - want[:n]).abs().max().item() / top
+        check(err <= EXPERT_TOL, f'grouped_expert_gemm b{B} x {L}: {err:.3e}'
+              f' of the largest output from the plain version > '
+              f'{EXPERT_TOL}')
+        check(min(k_err, t_err) > EXPERT_TOL,
+              f'grouped_expert_gemm b{B} x {L}: a fault reads within the '
+              f'tolerance (K-slice {k_err:.3e}, tile {t_err:.3e})')
+        errs.append(err)
+        ms = cuda_ms(lambda: eg.grouped_expert_gemm(x, r, *weights), reps=20)
+        plain_ms = cuda_ms(lambda: eg.grouped_expert_gemm_plain(x, r,
+                                                               *weights),
+                           reps=5)
+        alone[f'b{B}x{L}'] = {'ms': ms, 'plain_ms': plain_ms}
+        print(f'kernel grouped_expert_gemm b{B} x {L} ({real} real tokens, '
+              f'{int((r.counts[:E] > 0).sum())} experts touched): '
+              f'{err:.3e} of the largest output from the plain version '
+              f'(<= {EXPERT_TOL}); a K-slice of down left out reads '
+              f'{k_err:.3e}, a tile shifted by a row {t_err:.3e}; one '
+              f'layer {ms:.4f} ms (CUDA events), its plain version '
+              f'{plain_ms:.4f} ms')
+    del cut
+
+    # ---- the engine's own run
+    t0 = time.perf_counter()
+    eng = EmotionEngine(
+        speech_tree, scaler, image_variables=img_tree, image_meta=image_meta,
+        text_arch='moonlight', text_variables=mtree, text_kwargs=text,
+        text_vocab=make_vocab(),
+        fusion_variables=fusion_variables(seed=FUSION_SEED,
+                                          text_dim=text['hidden_size']),
+        fusion_config={'text_dim': text['hidden_size']},
+        compute_dtype='bfloat16', device='cuda')
+    check(eng._all_live and eng.text_leg is not None
+          and eng.text_leg.model.tree is mtree,
+          'the Moonlight engine is not tri-modal, or copied its leaves')
+    eng.warmup((1, 8, 32))
+    check(len(eng._graphs) == 9, f'{len(eng._graphs)} captured tri-modal '
+          'shapes, not 9')
+    print(f'moonlight engine: built and warmed up (9 graphs) in '
+          f'{time.perf_counter() - t0:.2f} s; memory allocated '
+          f'{torch.cuda.memory_allocated() / 1e9:.1f} GB')
+
+    def batch(B, s):
+        return [{'audio_path': 'tri.wav', 'image_path': 'tri.png',
+                 'text': SEQ_TEXTS[s], 'wave': tri_waves[i],
+                 'image': tri_pics[i]} for i in range(B)]
+    layers = text['num_hidden_layers'] - text['first_k_dense_replace']
+    names = tuple(bnd.GLOBALS)
+    eg.grouped_expert_gemm.launches = 0
+    dispatches = 0
+    by_shape = {}
+    for B, s in ((1, 16), (1, 32), (1, 128), (32, 128)):
+        reqs = batch(B, s)
+        stage_timer.reset()
+        for _ in range(3):
+            out = eng.predict_multimodal_batch(reqs)
+        dispatches += 3
+        check(all('attention_weights' in o['fusion'] for o in out),
+              f'moonlight b{B} x {s}: a request was not served')
+        rec = stage_timer.summary()
+        touched = rec['text.moe.experts_touched']['mean_ms']
+        pairs = rec['text.moe.routed_pairs']['mean_ms']
+        kern = profiled_launches(lambda: eng.predict_multimodal_batch(reqs),
+                                 5)
+        dispatches += 5 + 5 + 3
+        mine = [e for e in kern if any(n in e.name for n in names)]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 5e3
+        ms = sum(e.time_range.elapsed_us() for e in mine) / 5e3
+        b_ms = bnd.bound_ms(B, experts_touched=touched, routed_pairs=pairs)
+        by_shape[f'b{B}x{s}'] = {
+            'device_ms': ms if mine else None, 'bound_ms': b_ms,
+            'share': None if not mine else b_ms / ms,
+            'launches_seen': len(mine) / 5, 'experts_touched': touched,
+            'routed_pairs': pairs, 'busy_ms': busy}
+        print(f'moonlight b{B} x {s}: {touched:.2f} experts touched and '
+              f'{pairs:.1f} routed pairs a layer (the program\'s record); '
+              f'grouped_expert_gemm {fmt_ms(ms if mine else None)} of '
+              f'{busy:.4f} ms device busy a dispatch in {len(mine) / 5:.0f}'
+              f' launches, bound {b_ms:.4f} ms, share '
+              + ('not measured' if not mine else f'{b_ms / ms:.3f}')
+              + f'; {card}')
+    calls = eg.grouped_expert_gemm.launches
+    check(calls == layers * dispatches,
+          f'grouped_expert_gemm: {calls} calls in {dispatches} dispatches, '
+          f'not {layers} a dispatch')
+    del eng, mtree, ml, weights
+    torch.cuda.empty_cache()
+    print(f'moonlight phase wall: {time.perf_counter() - t_phase:.1f} s; '
+          f'{card}')
+    top = by_shape['b32x128']
+    for k, v in alone.items():
+        by_shape[k].update(layer_ms=v['ms'], layer_plain_ms=v['plain_ms'])
+    return {'name': 'grouped_expert_gemm', 'route': 'cuda',
+            'source': 'mec_tpu_torch/csrc/grouped_expert_gemm.cu',
+            'replaces': None, 'launches': calls * bnd.LAUNCHES,
+            'launches_by_path': {'moonlight_trimodal': calls * bnd.LAUNCHES},
+            'launches_per_dispatch': calls * bnd.LAUNCHES / dispatches,
+            'max_abs_err': max(errs), 'ms': alone['b32x128']['ms'],
+            'plain_ms': alone['b32x128']['plain_ms'],
+            'device_ms': top['device_ms'],
+            'bound_ms': top['bound_ms'], 'share': top['share'],
+            'by_shape': by_shape}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def dp_grads(device, mesh):
@@ -3514,6 +3740,10 @@ def main():
         card, wrappers, tree, scaler, tri_engine, bert_meta, tri['high'],
         engine, requests, tri_waves, tri_pics)
 
+    # ------------------------------------------------------- 6h moonlight
+    expert_row = moonlight_phase(card, tree, scaler, img_tree, cpu_meta,
+                                 tri_waves, tri_pics)
+
     # ----------------------------------------------------------- 7 times
     # the models phase first: the MobileNetV2 image step, the rf
     # tri-modal step, the forest walk and MobileNetV2's depthwise conv
@@ -3823,7 +4053,8 @@ def main():
     print(f'chip_smoke total wall: {time.perf_counter() - t_start:.1f} s; '
           f'{card}')
     print(card)
-    print(json.dumps({'kernels': [entry(name) for name in wrappers]}))
+    print(json.dumps({'kernels': [entry(name) for name in wrappers]
+                      + [expert_row]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -18,6 +18,13 @@ app (`create_app(engine=...)`) and the micro-batcher drive it unchanged:
     has num_experts serves its mixture-of-experts FFN (models/moe.py:
     per-example top-1 routing with the capacity of the bucket's padded
     length, as in JAX; in bf16 only the attention matmuls are int8)
+  text, text_arch='moonlight' (serving/text_moonlight.py): the same
+    WordPiece ids -> Moonlight-16B-A3B (models/moonlight.py: MLA, the
+    dropless top-6 expert layers on the grouped expert GEMM kernel) ->
+    packed [probs | last real token's hidden state]; its routing
+    counters ride out of the tri-modal step as two more columns of the
+    packed rows and are recorded a dispatch (text.moe.experts_touched,
+    text.moe.routed_pairs: means over the expert layers)
   image: uint8 RGB -> YUV 4:2:0 wire (bf16) or raw uint8 (fp32) ->
     device -> decode + ImageNet normalize -> ResNet50 (bf16: BN folded,
     stem pool K6, int8 bottleneck convs with static scales, layer1 K7;
@@ -118,6 +125,8 @@ on each is kept with its interval, thread and parent):
                                      the three wires, row-padded
     trimodal.dispatch_fetch          _run alone
     trimodal.result_unpack           result dicts and the degraded ladder
+  engine.load.text                   the text leg's load (BERT:
+                                     quantization and calibration)
   step.h2d, step.launch, step.fetch  every _run: the copies in, the step
                                      method's launches (in an eager
                                      tri-modal step: .speech, .text,
@@ -182,6 +191,7 @@ from mec_tpu_torch.ops.speech_kernels import make_speech_dnn
 from mec_tpu_torch.parallel.mesh import local_mesh_shape
 from mec_tpu_torch.serving import wire
 from mec_tpu_torch.serving.graphs import StepGraphs
+from mec_tpu_torch.serving.text_moonlight import MoonlightText
 from mec_tpu_torch.text.cleaning import clean_text
 from mec_tpu_torch.text.keras_tokenizer import KerasTokenizer
 from mec_tpu_torch.text.wordpiece import WordPieceTokenizer
@@ -214,6 +224,13 @@ _BERT_FIELDS = ('vocab_size', 'hidden_size', 'num_layers', 'num_heads',
                 'num_classes', 'num_experts', 'moe_capacity_factor')
 _FUSION_FIELDS = ('speech_dim', 'text_dim', 'image_dim', 'num_classes',
                   'hidden_dim')
+# the text legs by architecture: BERT (bert_* keywords; its code is this
+# module's) and Moonlight-16B-A3B (text_* keywords;
+# serving/text_moonlight.py)
+TEXT_ARCHS = ('bert', 'moonlight')
+# the tri-modal step's packed row: [s 7 | t 7 | i 7 | fusion 7 | attn 3 |
+# decision 3] with the attention fusion, [s | t | i | rf 7] with the forest
+_TRIMODAL_COLS = {'attention': 34, 'rf': 28}
 
 
 def heuristic_probs(label: str) -> List[float]:
@@ -377,6 +394,11 @@ class EmotionEngine:
                  bert_vocab: Union[Dict[str, int], WordPieceTokenizer,
                                    None] = None,
                  bert_meta: Optional[Dict] = None,
+                 text_arch: str = 'bert',
+                 text_variables: Optional[Dict] = None,
+                 text_kwargs: Optional[Dict] = None,
+                 text_vocab: Union[Dict[str, int], WordPieceTokenizer,
+                                   None] = None,
                  fusion_variables: Optional[Dict] = None,
                  fusion_config: Optional[Dict] = None,
                  forest_arrays: Optional[Dict] = None,
@@ -400,6 +422,11 @@ class EmotionEngine:
         WordPiece vocab {token: id} or a WordPieceTokenizer; without one
         the text model is disabled, as the JAX engine disables it
         without vocab.txt) and bert_meta ('int8_scales').
+        text_arch names the text leg: 'bert' (the bert_* keywords) or
+        'moonlight' (text_variables: a tree of compute-dtype tensors
+        on the device, models/moonlight.py's layout, kept as given;
+        text_kwargs: its deepseek_v3 config and num_labels; text_vocab:
+        a WordPiece vocab or tokenizer).
         fusion_variables ({'params'} MultiModalFusionModel) and
         fusion_config (its dims). forest_arrays and forest_meta (the
         random-forest fusion, mec_tpu/models/forest.py layout; served in
@@ -494,9 +521,22 @@ class EmotionEngine:
         self._bert_quant = False
         self._bert_quant_mode = 'dynamic'
         self._bert_scales_cached = False
-        if bert_variables is not None:
-            self._load_bert(bert_variables, dict(bert_kwargs or {}),
-                            bert_vocab, dict(bert_meta or {}))
+        self.text_leg: Optional[MoonlightText] = None
+        if text_arch not in TEXT_ARCHS:
+            raise ValueError(f'text_arch {text_arch!r}: expected one of '
+                             f'{TEXT_ARCHS}')
+        if text_arch != 'moonlight' and text_variables is not None:
+            raise ValueError("text_variables are the 'moonlight' leg's; "
+                             'BERT takes bert_variables')
+        if text_variables is not None:
+            with stage_timer.span('engine.load.text'):
+                self.text_leg = MoonlightText(
+                    text_variables, dict(text_kwargs or {}), text_vocab,
+                    self.device, self.compute_dtype)
+        elif bert_variables is not None:
+            with stage_timer.span('engine.load.text'):
+                self._load_bert(bert_variables, dict(bert_kwargs or {}),
+                                bert_vocab, dict(bert_meta or {}))
         if fusion_variables is not None:
             cfg = {k: v for k, v in (fusion_config or {}).items()
                    if k in _FUSION_FIELDS}
@@ -588,6 +628,8 @@ class EmotionEngine:
         rep._graphs = StepGraphs()
         for name in ('image', 'bert', 'fusion', 'lstm', 'forest'):
             setattr(rep, name, _move(getattr(self, name), device))
+        if self.text_leg is not None:
+            rep.text_leg = self.text_leg.to(device)
         if self.speech is not None:
             rep.speech = dict(self.speech,
                               dnn=self._make_dnn(self.speech['variables'],
@@ -783,7 +825,17 @@ class EmotionEngine:
     @property
     def _all_live(self) -> bool:
         return (self._fusion_kind is not None and self.speech is not None
-                and self.bert is not None and self.image is not None)
+                and self._text_live and self.image is not None)
+
+    @property
+    def _text_live(self) -> bool:
+        return self.bert is not None or self.text_leg is not None
+
+    @property
+    def text_tokenizer(self) -> Optional[WordPieceTokenizer]:
+        """The text leg's WordPiece tokenizer."""
+        return (self.text_leg.tokenizer if self.text_leg is not None
+                else self.bert_tokenizer)
 
     @staticmethod
     def _insert_cached_scales(art: Dict, key: str, what: str) -> bool:
@@ -990,9 +1042,18 @@ class EmotionEngine:
     def _text_forward(self, ids: torch.Tensor, mask: torch.Tensor
                       ) -> torch.Tensor:
         """Device step: (bucket, L) ids/mask -> (bucket, 7 + H)
-        [probs | CLS] (JAX bert_fwd, engine.py:836-839)."""
+        [probs | CLS] (JAX bert_fwd, engine.py:836-839), or the text
+        leg's [probs | feature]."""
+        return self._text_outputs(ids, mask)[0]
+
+    def _text_outputs(self, ids: torch.Tensor, mask: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The text leg's packed rows and its step counters (None for
+        BERT)."""
+        if self.text_leg is not None:
+            return self.text_leg.forward(ids, mask)
         logits, cls = self.bert['model'](ids, mask)
-        return torch.cat([torch.softmax(logits, dim=-1), cls], dim=-1)
+        return torch.cat([torch.softmax(logits, dim=-1), cls], dim=-1), None
 
     def _seq_slice(self, ids: np.ndarray, mask: np.ndarray
                    ) -> Tuple[np.ndarray, np.ndarray]:
@@ -1007,7 +1068,7 @@ class EmotionEngine:
         return ids, mask
 
     def _text_wire(self, texts: Sequence[str], bucket: int):
-        ids, mask = self._seq_slice(*self.bert_tokenizer.encode_batch(
+        ids, mask = self._seq_slice(*self.text_tokenizer.encode_batch(
             list(texts), Config.MAX_TEXT_LENGTH))
         return _pad_rows(ids, bucket), _pad_rows(mask, bucket)
 
@@ -1026,7 +1087,7 @@ class EmotionEngine:
 
     def predict_texts(self, texts: Sequence[str],
                       want_features: bool = False) -> List[Dict]:
-        if self.bert is None:
+        if not self._text_live:
             return [self.text_keyword_heuristic(t) for t in texts]
         b = self._bucket(len(texts))
         packed = self._run('_text_forward',
@@ -1303,12 +1364,14 @@ class EmotionEngine:
         """Device step of the tri-modal request (JAX trimodal_fwd,
         engine.py:879-894): the three encoders and the fusion ->
         (bucket, 34) [s 7 | t 7 | i 7 | fusion 7 | attn 3 | decision 3],
-        or in rf mode (bucket, 28) [s 7 | t 7 | i 7 | forest 7]."""
+        or in rf mode (bucket, 28) [s 7 | t 7 | i 7 | forest 7]; a text
+        leg with counters adds them as float32 columns, the same in every
+        row (_split_counters)."""
         n = len(EMOTIONS)
         with stage_timer.span('step.launch.speech'):
             s = self._speech_forward(w_wire)
         with stage_timer.span('step.launch.text'):
-            t = self._text_forward(ids, mask)
+            t, counts = self._text_outputs(ids, mask)
         with stage_timer.span('step.launch.image'):
             im = self._image_forward(i_wire)
         with stage_timer.span('step.launch.fusion'):
@@ -1317,7 +1380,24 @@ class EmotionEngine:
             else:
                 f = self._fusion_forward(s[:, n:], t[:, n:], im[:, n:],
                                          s[:, :n], t[:, :n], im[:, :n])
-            return torch.cat([s[:, :n], t[:, :n], im[:, :n], f], dim=-1)
+            row = torch.cat([s[:, :n], t[:, :n], im[:, :n], f], dim=-1)
+            if counts is None:
+                return row
+            return torch.cat([row.float(), counts.float().expand(
+                row.shape[0], -1)], dim=-1)
+
+    def _split_counters(self, packed: np.ndarray) -> np.ndarray:
+        """The tri-modal rows without the text leg's counter columns, which
+        are recorded on the StageTimer (summed over the replicas' blocks,
+        whose rows each carry their block's counts)."""
+        cols = _TRIMODAL_COLS[self._fusion_kind]
+        if self.text_leg is None or packed.shape[1] == cols:
+            return packed
+        per = packed.shape[0] // len(self.replicas)
+        summed = packed[::per, cols:].sum(axis=0)
+        for name, v in self.text_leg.counter_means(summed).items():
+            stage_timer.record(name, v)
+        return packed[:, :cols]
 
     def _trimodal_wire(self, waves, texts: Sequence[str], imgs, b: int):
         """The tri-modal step's arguments, row-padded to bucket b, under
@@ -1341,7 +1421,8 @@ class EmotionEngine:
         n = len(texts)
         args = self._trimodal_wire(waves, texts, imgs, self._bucket(n))
         with stage_timer.span('trimodal.dispatch_fetch'):
-            return self._run('_trimodal_forward', *args)[:n]
+            packed = self._run('_trimodal_forward', *args)
+        return self._split_counters(packed)[:n]
 
     def _trimodal_result(self, row: np.ndarray) -> Dict[str, Dict]:
         return {'speech': result_dict(row[:7]),
@@ -1422,8 +1503,9 @@ class EmotionEngine:
                 with span('trimodal.wire_encode.image'):
                     i_wire = self._wire_image(img[None], b)
             with span('trimodal.dispatch_fetch') as run_span:
-                row = self._run('_trimodal_forward', w_wire, ids, mask,
-                                i_wire)[0]
+                packed = self._run('_trimodal_forward', w_wire, ids, mask,
+                                   i_wire)
+            row = self._split_counters(packed)[0]
             with span('trimodal.result_unpack') as unpack_span:
                 out = self._trimodal_result(row)
         self._last_b1_phases = {
@@ -1576,7 +1658,7 @@ class EmotionEngine:
             if self.lstm is not None:
                 self._run('_lstm_forward',
                           np.zeros((b, Config.MAX_TEXT_LENGTH), np.int32))
-            if self.bert is None:
+            if not self._text_live:
                 continue
             w_wire = self._wire_waves(waves, b)
             i_wire = self._wire_image(imgs, b)
