@@ -245,7 +245,14 @@ Phases (the first failure exits non-zero; no phase's failure is caught):
               window of each: the kernel's device ms a dispatch, the
               card's busy ms, and the bound of benchmark/bounds/
               grouped_expert_gemm.py at the routing the program recorded
-              (text.moe.experts_touched, text.moe.routed_pairs)
+              (text.moe.experts_touched, text.moe.routed_pairs). The
+              expert layer's glue kernels (csrc/expert_routing.cu: the
+              router, the sort, the combine) at the same four shapes on
+              layer 1's norm, gate and experts against their plain
+              versions (GLUE_NEAR, GLUE_W_TOL; the sort and the combine
+              exact) with their CUDA-event ms a call, 26 calls each a
+              dispatch in the engine, their device ms a dispatch and the
+              dispatch's device launches from the profiled windows
   7. times    CUDA-event medians of each kernel (and, beside it, its
               device time: the summed durations of its device launches
               in a marked torch.profiler range of the same 30 calls,
@@ -1208,6 +1215,84 @@ def expert_gemm_bound():
     return mod
 
 
+# the expert layer's glue kernels against their plain versions
+# (tests/test_torch_moonlight.py): each row of h rms_norm's exactly at an
+# rsqrt within GLUE_H_ULPS float32 ulps of torch's (the mean of squares
+# sums in another order); the choice equal to topk of
+# the float32 scores of the kernel's own h, in order, but where two
+# neighbours of a token's top 7 biased scores lie within GLUE_NEAR
+# relative (2,048 products summed in another order than cuBLAS's); the
+# weights within GLUE_W_TOL relative (six scores summed in another order);
+# the sort and the combine exact
+GLUE_H_ULPS, GLUE_NEAR, GLUE_W_TOL = 8, 1e-5, 1e-6
+GLUE_KERNELS = ('expert_router_kernel', 'expert_sort_kernel',
+                'expert_combine_kernel')
+
+
+def expert_glue_check(eg, p, text, x, valid, weights, shape):
+    """6h: the router, the sort and the combine of layer p (its norm,
+    gate and experts) on tokens x against their plain versions; returns
+    each one's CUDA-event ms a call (median of 20)."""
+    import torch
+    gate = p['mlp']['gate']
+    K, E, S = (text['num_experts_per_tok'], text['n_routed_experts'],
+               text['n_shared_experts'])
+    args = (p['post_attention_layernorm']['weight'], gate['weight'],
+            gate['e_score_correction_bias'], text['rms_norm_eps'], K,
+            text['norm_topk_prob'], text['routed_scaling_factor'])
+    h, idx, w = eg.expert_router(x, *args)
+    ph, _idx, _w = eg.expert_router_plain(x, *args)
+    xf, norm_w = x.float(), args[0]
+    r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + args[3])
+    ok = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    lo, hi = r, r
+    for _ in range(GLUE_H_ULPS + 1):
+        for rr in (lo, hi):
+            ok |= (norm_w * (xf * rr).to(x.dtype) == h).all(-1)
+        lo = torch.nextafter(lo, torch.full_like(lo, -float('inf')))
+        hi = torch.nextafter(hi, torch.full_like(hi, float('inf')))
+    check(bool(ok.all()), f'expert_router {shape}: {int((~ok).sum())} rows '
+          f'of h are not rms_norm\'s at any rsqrt within {GLUE_H_ULPS} ulps')
+    scores = torch.sigmoid(h.float() @ gate['weight'].float().T)
+    top = torch.topk(scores + gate['e_score_correction_bias'].float(), K + 1,
+                     -1)
+    near = ((top.values[:, :-1] - top.values[:, 1:])
+            <= GLUE_NEAR * top.values[:, 1:].abs()).any(-1)
+    want = top.indices[:, :K]
+    s = scores.gather(1, want)
+    if text['norm_topk_prob']:
+        s = s / (s.sum(-1, keepdim=True) + 1e-20)
+    want_w = s * text['routed_scaling_factor']
+    w_err = ((w - want_w).abs() / want_w.abs())[~near].max().item()
+    check(torch.equal(idx.long()[~near], want[~near]) and w_err <= GLUE_W_TOL,
+          f'expert_router {shape}: the choice differs from topk of its '
+          f'scores, or a weight by {w_err:.3e} relative (> {GLUE_W_TOL})')
+    counters = torch.zeros(2, dtype=torch.int32, device=x.device)
+    r = eg.sort_pairs(idx, w, valid, E, S, counters)
+    want_r = eg.route(idx.long(), w, valid, E, S)
+    per = want_r.counts[:E]
+    check(all(torch.equal(getattr(r, f), getattr(want_r, f))
+              for f in want_r._fields)
+          and counters.tolist() == [int((per > 0).sum()), int(per.sum())],
+          f'sort_pairs {shape}: not route()\'s Routing or counters')
+    y = eg.grouped_expert_gemm(h, r, *weights)
+    got = eg.combine_residual(x, y, r, valid)
+    check(torch.equal(got, x + eg.combine(y, r, valid).to(x.dtype)),
+          f'combine_residual {shape}: not bit for bit its plain version')
+    ms = {'router': cuda_ms(lambda: eg.expert_router(x, *args), reps=20),
+          'sort': cuda_ms(lambda: eg.sort_pairs(idx, w, valid, E, S,
+                                                counters), reps=20),
+          'combine': cuda_ms(lambda: eg.combine_residual(x, y, r, valid),
+                             reps=20)}
+    print(f'expert glue {shape}: router h rms_norm\'s at a nearby rsqrt ('
+          f'{(h == ph).float().mean().item():.4f} bit-equal), choice equal '
+          f'but {int(near.sum())} near-tied of {near.numel()} tokens, '
+          f'weights within {w_err:.2e}; sort and combine exact; a call '
+          + ', '.join(f'{k} {v:.4f} ms' for k, v in ms.items())
+          + ' (CUDA events)')
+    return ms
+
+
 def moonlight_phase(card, speech_tree, scaler, img_tree, image_meta,
                     tri_waves, tri_pics):
     """6h. moonlight: Moonlight-16B-A3B's text leg at its published widths
@@ -1247,7 +1332,8 @@ def moonlight_phase(card, speech_tree, scaler, img_tree, image_meta,
           f'{time.perf_counter() - t0:.2f} s')
 
     # ---- the kernel against its plain version, and the faults it catches
-    ml = mtree['layers']['1']['mlp']
+    p1 = mtree['layers']['1']
+    ml = p1['mlp']
     weights = (ml['experts']['gate_proj'], ml['experts']['up_proj'],
                ml['experts']['down_proj'],
                ml['shared_experts']['gate_proj']['weight'],
@@ -1294,7 +1380,10 @@ def moonlight_phase(card, speech_tree, scaler, img_tree, image_meta,
         plain_ms = cuda_ms(lambda: eg.grouped_expert_gemm_plain(x, r,
                                                                *weights),
                            reps=5)
-        alone[f'b{B}x{L}'] = {'ms': ms, 'plain_ms': plain_ms}
+        alone[f'b{B}x{L}'] = {'ms': ms, 'plain_ms': plain_ms,
+                              'glue_ms': expert_glue_check(
+                                  eg, p1, text, x, valid, weights,
+                                  f'b{B} x {L}')}
         print(f'kernel grouped_expert_gemm b{B} x {L} ({real} real tokens, '
               f'{int((r.counts[:E] > 0).sum())} experts touched): '
               f'{err:.3e} of the largest output from the plain version '
@@ -1330,7 +1419,9 @@ def moonlight_phase(card, speech_tree, scaler, img_tree, image_meta,
                  'image': tri_pics[i]} for i in range(B)]
     layers = text['num_hidden_layers'] - text['first_k_dense_replace']
     names = tuple(bnd.GLOBALS)
-    eg.grouped_expert_gemm.launches = 0
+    glue = (eg.expert_router, eg.sort_pairs, eg.combine_residual)
+    for wrapper in (eg.grouped_expert_gemm, *glue):
+        wrapper.launches = 0
     dispatches = 0
     by_shape = {}
     for B, s in ((1, 16), (1, 32), (1, 128), (32, 128)):
@@ -1351,29 +1442,42 @@ def moonlight_phase(card, speech_tree, scaler, img_tree, image_meta,
         busy = sum(e.time_range.elapsed_us() for e in kern) / 5e3
         ms = sum(e.time_range.elapsed_us() for e in mine) / 5e3
         b_ms = bnd.bound_ms(B, experts_touched=touched, routed_pairs=pairs)
+        glue_ms = {n: sum(e.time_range.elapsed_us() for e in kern
+                          if n in e.name) / 5e3 for n in GLUE_KERNELS}
         by_shape[f'b{B}x{s}'] = {
             'device_ms': ms if mine else None, 'bound_ms': b_ms,
             'share': None if not mine else b_ms / ms,
             'launches_seen': len(mine) / 5, 'experts_touched': touched,
-            'routed_pairs': pairs, 'busy_ms': busy}
+            'routed_pairs': pairs, 'busy_ms': busy,
+            'kernels_a_dispatch': len(kern) / 5, 'glue_device_ms': glue_ms}
         print(f'moonlight b{B} x {s}: {touched:.2f} experts touched and '
               f'{pairs:.1f} routed pairs a layer (the program\'s record); '
               f'grouped_expert_gemm {fmt_ms(ms if mine else None)} of '
               f'{busy:.4f} ms device busy a dispatch in {len(mine) / 5:.0f}'
               f' launches, bound {b_ms:.4f} ms, share '
               + ('not measured' if not mine else f'{b_ms / ms:.3f}')
-              + f'; {card}')
+              + f'; {len(kern) / 5:.1f} device launches a dispatch, the glue '
+              + ', '.join(f'{n} {v:.4f} ms' for n, v in glue_ms.items())
+              + f' a dispatch; {card}')
     calls = eg.grouped_expert_gemm.launches
     check(calls == layers * dispatches,
           f'grouped_expert_gemm: {calls} calls in {dispatches} dispatches, '
           f'not {layers} a dispatch')
+    for wrapper in glue:
+        check(wrapper.launches == layers * dispatches,
+              f'{wrapper.__name__}: {wrapper.launches} calls in '
+              f'{dispatches} dispatches, not {layers} a dispatch')
     del eng, mtree, ml, weights
     torch.cuda.empty_cache()
     print(f'moonlight phase wall: {time.perf_counter() - t_phase:.1f} s; '
           f'{card}')
     top = by_shape['b32x128']
     for k, v in alone.items():
-        by_shape[k].update(layer_ms=v['ms'], layer_plain_ms=v['plain_ms'])
+        by_shape[k].update(layer_ms=v['ms'], layer_plain_ms=v['plain_ms'],
+                           glue_ms=v['glue_ms'])
+    print(f'expert glue: {layers} calls a dispatch each of '
+          + ', '.join(w.__name__ for w in glue) + f' in {dispatches} '
+          f'dispatches; {card}')
     return {'name': 'grouped_expert_gemm', 'route': 'cuda',
             'source': 'mec_tpu_torch/csrc/grouped_expert_gemm.cu',
             'replaces': None, 'launches': calls * bnd.LAUNCHES,

@@ -17,12 +17,15 @@ routing (n_group = topk_group = 1): s = sigmoid(x W_g^T) in float32, the
 top num_experts_per_tok of s + e_score_correction_bias (the bias chooses
 and never weights), w = routed_scaling_factor * s_top / sum(s_top), and
 out = sum_e w_e SwiGLU_e(x) + SwiGLU_shared(x). Padding tokens route to
-no expert. The experts go through ops/expert_gemm.py (the grouped GEMM
-kernel on a card, its plain version on the CPU), the shared experts as
-n_shared_experts more groups of the same GEMM with weight 1, and a
-token's pairs are summed in float32, then rounded once to the compute
-dtype. Each expert layer counts, on the device, the experts given at
-least one real token and the real token-expert pairs.
+no expert. The whole expert layer, from the residual stream to the
+residual stream, goes through ops/expert_gemm.py (on a card the router,
+the sort of the token-expert pairs, the grouped GEMM and the combine as
+hand-written kernels; on the CPU their plain versions): the shared
+experts as n_shared_experts more groups of the same GEMM with weight 1,
+a token's pairs summed in float32 in slot order, then rounded once to
+the compute dtype and added to the residual. Each expert layer counts,
+on the device, the experts given at least one real token and the real
+token-expert pairs.
 
 The weights are a tree of tensors in the deepseek_v3 names (HF
 DeepseekV3Model's, without the `model.` prefix) and nn.Linear's (out, in)
@@ -130,30 +133,29 @@ class MoonlightForClassification:
         o = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, nh * dv)
         return F.linear(o, p['o_proj']['weight'])
 
-    def experts(self, h: torch.Tensor, p: Dict, valid: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The expert layer on (T, H) tokens -> (T, H) in h's dtype, and
-        (experts given a real token, real token-expert pairs) as int32."""
+    def expert_layer(self, x: torch.Tensor, p: Dict, valid: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+        """x (T, H) -> x + the expert layer of the post-attention RMSNorm
+        of x, in x's dtype; adds the layer's (experts given a real token,
+        real token-expert pairs) into counts (2,) int32. On a card the
+        router, the sort and the combine are one launch each around the
+        grouped GEMM's two (ops/expert_gemm.py); on the CPU their plain
+        versions."""
         c = self.cfg
-        n_routed = c['n_routed_experts']
-        gate = p['gate']
-        scores = torch.sigmoid(h.float() @ gate['weight'].float().T)
-        choice = scores + gate['e_score_correction_bias'].float()
-        idx = torch.topk(choice, c['num_experts_per_tok'], -1).indices
-        w = scores.gather(1, idx)
-        if c['norm_topk_prob']:
-            w = w / (w.sum(-1, keepdim=True) + 1e-20)
-        w = w * c['routed_scaling_factor']
-        routing = expert_gemm.route(idx, w, valid, n_routed,
-                                    c['n_shared_experts'])
-        ex, sh = p['experts'], p['shared_experts']
+        mlp = p['mlp']
+        gate, ex, sh = mlp['gate'], mlp['experts'], mlp['shared_experts']
+        h, idx, w = expert_gemm.expert_router(
+            x, p['post_attention_layernorm']['weight'], gate['weight'],
+            gate['e_score_correction_bias'], c['rms_norm_eps'],
+            c['num_experts_per_tok'], c['norm_topk_prob'],
+            c['routed_scaling_factor'])
+        routing = expert_gemm.sort_pairs(idx, w, valid, c['n_routed_experts'],
+                                         c['n_shared_experts'], counts)
         y = expert_gemm.grouped_expert_gemm(
             h, routing, ex['gate_proj'], ex['up_proj'], ex['down_proj'],
             sh['gate_proj']['weight'], sh['up_proj']['weight'],
             sh['down_proj']['weight'])
-        per = routing.counts[:n_routed]
-        counts = torch.stack([(per > 0).sum(), per.sum()]).to(torch.int32)
-        return expert_gemm.combine(y, routing, valid).to(h.dtype), counts
+        return expert_gemm.combine_residual(x, y, routing, valid)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -173,13 +175,12 @@ class MoonlightForClassification:
             p = t['layers'][str(i)]
             x = x + self.attention(rms_norm(x, p['input_layernorm']['weight'],
                                             eps), p['self_attn'], cos, sin)
-            h = rms_norm(x, p['post_attention_layernorm']['weight'], eps)
             if i < c['first_k_dense_replace']:
-                x = x + swiglu(h, p['mlp'])
+                x = x + swiglu(rms_norm(
+                    x, p['post_attention_layernorm']['weight'], eps), p['mlp'])
             else:
-                out, n = self.experts(h.reshape(B * L, -1), p['mlp'], valid)
-                x = x + out.view(B, L, -1)
-                counts = counts + n
+                x = self.expert_layer(x.view(B * L, -1), p, valid,
+                                      counts).view(B, L, -1)
         last = (mask.sum(1) - 1).clamp_min(0).long()
         feat = rms_norm(x[torch.arange(B, device=ids.device), last],
                         t['norm']['weight'], eps)

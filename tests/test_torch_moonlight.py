@@ -12,8 +12,11 @@ per token in another order, RoPE on deepseek's permuted pairs); the port
 and the reference 2e-5 (the same, and the shared SwiGLU summed as two
 1-expert halves of the grouped GEMM, the pairs summed in slot order).
 
-The card tests (marker cuda; they skip here) run the kernel against its
-plain version at the serving shapes and a captured step against eager:
+The expert layer's entry point is held bit for bit to the composition
+its kernels replaced (its wrappers' plain versions on the CPU). The card
+tests (marker cuda; they skip here) run the grouped GEMM, the router, the
+sort and the combine against their plain versions at the serving shapes,
+and a captured expert layer against eager:
 
     python -m pytest --noconftest -m cuda tests/test_torch_moonlight.py -q
 """
@@ -271,6 +274,74 @@ def test_each_term_of_the_expert_layer_is_checked(tree, drop):
     assert (feat - r_feat).abs().max() > 100 * PORT_TOL
 
 
+def _old_expert_layer(x, p, valid, text=TEXT):
+    """The expert layer as the decoder composed it before its glue became
+    kernels: rms_norm, the float32 gate, topk, route(), the grouped GEMM,
+    combine() and the add, with the counters summed beside."""
+    from mec_tpu_torch.models.moonlight import rms_norm
+    mlp, gate = p['mlp'], p['mlp']['gate']
+    h = rms_norm(x, p['post_attention_layernorm']['weight'],
+                 text['rms_norm_eps'])
+    scores = torch.sigmoid(h.float() @ gate['weight'].float().T)
+    choice = scores + gate['e_score_correction_bias'].float()
+    idx = torch.topk(choice, text['num_experts_per_tok'], -1).indices
+    w = scores.gather(1, idx)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    w = w * text['routed_scaling_factor']
+    E = text['n_routed_experts']
+    r = expert_gemm.route(idx, w, valid, E, text['n_shared_experts'])
+    ex, sh = mlp['experts'], mlp['shared_experts']
+    y = expert_gemm.grouped_expert_gemm(
+        h, r, ex['gate_proj'], ex['up_proj'], ex['down_proj'],
+        sh['gate_proj']['weight'], sh['up_proj']['weight'],
+        sh['down_proj']['weight'])
+    per = r.counts[:E]
+    counts = torch.stack([(per > 0).sum(), per.sum()]).to(torch.int32)
+    out = torch.where(valid[:, None], y[r.pos].sum(1), 0.0)
+    return x + out.to(x.dtype), counts
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('bucket', [16, 32, 128])
+def test_the_expert_layer_equals_the_old_composition(tree, bucket, dtype):
+    """The expert layer's entry point on the CPU (its wrappers' plain
+    versions) against the composition it replaced, bit for bit, with
+    padding tokens (real lengths 16, 11 and 5) at every sequence bucket."""
+    dt = getattr(torch, dtype)
+    t = _flat_map(tree, lambda v: v.to(dt))
+    _ids, mask = _inputs()
+    mask = torch.nn.functional.pad(mask, (0, bucket - 16))
+    valid = mask.reshape(-1) > 0
+    g = torch.Generator().manual_seed(bucket)
+    x = torch.randn(valid.numel(), TEXT['hidden_size'], generator=g).to(dt)
+    model = MoonlightForClassification(t, TEXT)
+    for layer in range(1, TEXT['num_hidden_layers']):
+        p = t['layers'][str(layer)]
+        counts = torch.ones(2, dtype=torch.int32)
+        got = model.expert_layer(x, p, valid, counts)
+        want, n = _old_expert_layer(x, p, valid)
+        assert got.dtype == dt and torch.equal(got, want)
+        assert torch.equal(counts, n + 1)
+        assert torch.equal(got[~valid], x[~valid])
+        x = got
+
+
+def test_the_router_covers_every_captured_shape_in_one_wave():
+    """The router's tokens a block follow the step's tokens: at each of the
+    nine captured (batch, sequence) shapes its grid fits the SMs once and
+    its shared memory fits a block at Moonlight's width."""
+    H = 2048
+    for B in (1, 8, 32):
+        for L in (16, 32, 128):
+            T = B * L
+            tb = expert_gemm.router_tokens(T)
+            assert tb in (4, 8, 16, 32)
+            assert -(-T // tb) <= expert_gemm._build.SM_COUNT
+            assert tb * H * 2 + 2 * tb * 64 * 4 <= expert_gemm.MAX_SMEM
+    assert expert_gemm.router_tokens(16) == 4
+    assert expert_gemm.router_tokens(4096) == 32
+
+
 def _tiny_engine(tree, device='cpu', dtype='float32'):
     from mec_tpu_torch.serving import synthetic_artifacts as sa
     from mec_tpu_torch.serving.engine import EmotionEngine
@@ -429,4 +500,164 @@ def test_a_captured_expert_layer_replays_eager_bit_for_bit(dev, full_weights,
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(static, eager2)
+    assert not torch.equal(eager, eager2)
+
+
+def _glue_inputs(B, L, real, seed=0):
+    """x (T, H) bf16 at the residual stream's scale, the post-attention
+    norm, the gate at deepseek_v3's init and a correction bias in
+    [-0.01, 0.01] (benchmark/legs/text_moonlight.py), and the valid
+    tokens: rows of `real` tokens at b1, of `real` less 7 b (mod `real`)
+    at b > 1, so that padding sits between real tokens."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    H, E = FULL['H'], FULL['E']
+    x = (torch.randn(B * L, H, generator=g, device='cuda')
+         * 3).to(torch.bfloat16)
+    norm_w = (1 + 0.1 * torch.randn(H, generator=g, device='cuda')).to(
+        torch.bfloat16)
+    gate_w = (0.02 * torch.randn(E, H, generator=g, device='cuda')).to(
+        torch.bfloat16)
+    bias = (0.02 * torch.rand(E, generator=g, device='cuda') - 0.01).to(
+        torch.bfloat16)
+    lengths = torch.tensor([real - (7 * b) % real for b in range(B)],
+                           device='cuda')
+    valid = (torch.arange(L, device='cuda')[None] < lengths[:, None]
+             ).reshape(-1)
+    return x, (norm_w, gate_w, bias), valid
+
+
+ROUTER_ARGS = dict(eps=1e-5, k=FULL['K'], norm_topk_prob=True, scale=2.446)
+# the rsqrt's float32 ulps within which each row of the router's h must be
+# rms_norm's row exactly: the mean of squares sums in another order
+H_ULPS = 8
+
+
+def _h_at_a_nearby_rsqrt(x, norm_w, h, eps=ROUTER_ARGS['eps'], ulps=H_ULPS):
+    """Whether each row of h is exactly models/moonlight.py::rms_norm's row
+    at an rsqrt within `ulps` float32 ulps of torch's. (A bound in bf16
+    ulps of h would be two, not one: the normalised row rounds to bf16,
+    and its product with the weight rounds again.)"""
+    xf = x.float()
+    r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    ok = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    lo, hi = r, r
+    for _ in range(ulps + 1):
+        for rr in (lo, hi):
+            ok |= (norm_w * (xf * rr).to(x.dtype) == h).all(-1)
+        lo = torch.nextafter(lo, torch.full_like(lo, -float('inf')))
+        hi = torch.nextafter(hi, torch.full_like(hi, float('inf')))
+    return ok
+
+
+def _router(x, weights, plain=False):
+    fn = expert_gemm.expert_router_plain if plain else expert_gemm.expert_router
+    return fn(x, *weights, **ROUTER_ARGS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,L,real', [(1, 16, 12), (1, 32, 30),
+                                      (1, 128, 100), (32, 128, 128)])
+def test_router_equals_its_plain_version(dev, B, L, real):
+    """h rms_norm's exactly at an rsqrt a few float32 ulps from torch's
+    (the mean of squares sums in another order); the choice equal to topk of the float32 scores of the
+    kernel's own h, in order, but where two neighbours of a token's top 7
+    biased scores lie within 1e-5 relative (float32 sums of 2,048 products
+    in another order than cuBLAS's); the weights within 1e-6 relative
+    (the sum of six scores in another order)."""
+    x, weights, _valid = _glue_inputs(B, L, real)
+    before = expert_gemm.expert_router.launches
+    h, idx, w = _router(x, weights)
+    torch.cuda.synchronize()
+    assert expert_gemm.expert_router.launches == before + 1
+    ph, _pidx, _pw = _router(x, weights, plain=True)
+    assert _h_at_a_nearby_rsqrt(x, weights[0], h).all()
+    assert (h == ph).float().mean() > 0.99
+    _norm_w, gate_w, bias = weights
+    scores = torch.sigmoid(h.float() @ gate_w.float().T)
+    top = torch.topk(scores + bias.float(), FULL['K'] + 1, -1)
+    gaps = top.values[:, :-1] - top.values[:, 1:]
+    near = (gaps <= 1e-5 * top.values[:, 1:].abs()).any(-1)
+    assert near.float().mean() < 0.01
+    want = top.indices[:, :FULL['K']]
+    assert torch.equal(idx.long()[~near], want[~near])
+    s = scores.gather(1, want)
+    want_w = s / (s.sum(-1, keepdim=True) + 1e-20) * ROUTER_ARGS['scale']
+    rel = ((w - want_w).abs() / want_w.abs())[~near]
+    assert rel.max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,L,real', [(1, 16, 12), (1, 32, 30),
+                                      (1, 128, 100), (32, 128, 128)])
+def test_sort_and_combine_equal_their_plain_versions(dev, full_weights, B, L,
+                                                     real):
+    """The sort writes route()'s Routing exactly for the router's choice,
+    and its counters; the combine (x + the bf16 sum of a token's pairs in
+    slot order) is bit for bit with combine() and the add on the same y,
+    padding tokens keeping x."""
+    x, weights, valid = _glue_inputs(B, L, real)
+    _h, idx, w = _router(x, weights)
+    E, S = FULL['E'], FULL['S']
+    counters = torch.tensor([3, 5], dtype=torch.int32, device='cuda')
+    want_counters = counters.clone()
+    before = expert_gemm.sort_pairs.launches
+    r = expert_gemm.sort_pairs(idx, w, valid, E, S, counters)
+    torch.cuda.synchronize()
+    assert expert_gemm.sort_pairs.launches == before + 1
+    want = expert_gemm.route(idx.long(), w, valid, E, S)
+    for name in want._fields:
+        assert torch.equal(getattr(r, name), getattr(want, name)), name
+    per = want.counts[:E]
+    want_counters += torch.stack([(per > 0).sum(), per.sum()]).int()
+    assert torch.equal(counters, want_counters)
+    g = torch.Generator(device='cuda').manual_seed(1)
+    y = torch.randn(r.src.numel(), FULL['H'], generator=g, device='cuda')
+    y[int(r.offsets[-1]):] = float('nan')     # padding pairs' rows
+    before = expert_gemm.combine_residual.launches
+    got = expert_gemm.combine_residual(x, y, r, valid)
+    torch.cuda.synchronize()
+    assert expert_gemm.combine_residual.launches == before + 1
+    plain = x + expert_gemm.combine(y, r, valid).to(x.dtype)
+    assert torch.equal(got, plain)
+    assert torch.equal(got[~valid], x[~valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,L,real', [(1, 16, 12), (32, 128, 128)])
+def test_a_captured_whole_expert_layer_replays_eager_bit_for_bit(
+        dev, full_weights, B, L, real):
+    """Router, sort, grouped GEMM and combine captured into one CUDA graph:
+    a replay on new tokens equals eager on them bit for bit, counters
+    included, and each wrapper's .launches rises by its captured calls on
+    a replay (one each)."""
+    from mec_tpu_torch.ops import _build
+    x, weights, valid = _glue_inputs(B, L, real)
+    counters = torch.zeros(2, dtype=torch.int32, device='cuda')
+    wrappers = (expert_gemm.expert_router, expert_gemm.sort_pairs,
+                expert_gemm.grouped_expert_gemm, expert_gemm.combine_residual)
+
+    def layer():
+        counters.zero_()
+        _h, idx, w = _router(x, weights)
+        r = expert_gemm.sort_pairs(idx, w, valid, FULL['E'], FULL['S'],
+                                   counters)
+        y = expert_gemm.grouped_expert_gemm(_h, r, *full_weights)
+        return expert_gemm.combine_residual(x, y, r, valid)
+    eager = layer()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with _build.counting_calls() as calls, torch.cuda.graph(graph):
+        static = layer()
+    assert all(calls[wr] == 1 for wr in wrappers), calls
+    x2, _w, _v = _glue_inputs(B, L, real, seed=9)
+    x.copy_(x2)
+    eager2 = layer()
+    eager_counters = counters.clone()
+    before = [wr.launches for wr in wrappers]
+    graph.replay()
+    _build.add_launches(calls)
+    torch.cuda.synchronize()
+    assert [wr.launches for wr in wrappers] == [n + 1 for n in before]
+    assert torch.equal(static, eager2)
+    assert torch.equal(counters, eager_counters)
     assert not torch.equal(eager, eager2)
